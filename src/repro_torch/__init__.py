@@ -2,7 +2,9 @@
 
 Layout mirrors ``src/repro``: ``core`` (the A2WS scheduler, copied verbatim:
 pure Python and numpy), ``kernels.fd3d`` (the FD3D step as a CUDA kernel for
-sm_90a, with its plain PyTorch version) and ``seismic`` (shots, the tasks
-A2WS schedules).  Imports ``torch`` and ``numpy``, never ``jax`` nor
-anything under ``repro``.
+sm_90a, with its plain PyTorch version), ``seismic`` (shots, the tasks A2WS
+schedules), ``configs`` and ``models`` (the architecture registry and the
+dense LM family), ``serve`` (step makers and the ``ServePool`` host plane)
+and ``launch.serve`` (the serving launcher).  Imports ``torch`` and ``numpy``,
+never ``jax`` nor anything under ``repro``.
 """

@@ -1,0 +1,35 @@
+"""phi4-mini-3.8b [arXiv:2412.08905].
+
+Pool spec: 32L d_model=3072 24H (GQA kv=8) d_ff=8192 vocab=200064 — RoPE,
+SwiGLU, GQA.
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi4-mini-3.8b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=200_064,
+    head_dim=128,
+    rope_theta=10_000.0,
+    max_seq=32_768,
+)
+
+SMOKE = ModelConfig(
+    name="phi4-mini-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=48,
+    n_heads=6,
+    n_kv_heads=2,
+    d_ff=96,
+    vocab=256,
+    head_dim=8,
+    max_seq=256,
+    remat="none",
+)

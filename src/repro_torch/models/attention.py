@@ -1,0 +1,190 @@
+"""GQA attention: full, sliding-window and cached, as in
+``repro/models/attention.py``.
+
+Train/prefill paths use a blocked softmax (a loop over KV chunks with a
+running max and denominator), the reference's ``lax.scan`` written out, so
+the [S, S] score matrix is never materialised.  Decode attends a query of
+length 1 against the cache directly.  The reference reaches no Pallas kernel
+here; these are plain PyTorch ops.
+
+Dots accumulate in f32 as the reference's ``preferred_element_type`` does:
+the operands are widened to f32 before each score and value product, so a
+bf16 model keeps f32 scores and accumulators.  The masking constant
+``-2e38`` is safe only in f32, which is where it is used.
+
+MLA (DeepSeek-V3) comes with the MoE/MLA slice.
+"""
+
+from __future__ import annotations
+
+import math
+import operator
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import dense, param
+
+__all__ = [
+    "gqa_params",
+    "gqa_attend",
+    "gqa_decode",
+    "flash_attention",
+]
+
+_NEG = -2.0e38
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, Hkv, D]
+    v: torch.Tensor,  # [B, Sk, Hkv, Dv]
+    *,
+    causal: bool,
+    window: int = 0,
+    q_offset: int = 0,
+    chunk: int = 1024,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Blocked softmax attention.  GQA via head grouping.
+
+    ``q_offset`` is the absolute position of q[0] (for cached prefill);
+    ``window`` > 0 restricts attention to the last ``window`` keys.  K and V
+    are padded to a multiple of ``chunk`` and the padding masked, as in the
+    reference.
+    """
+    b, sq, h, d = q.shape
+    _, sk, hkv, dv = v.shape
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    # The scaled query is rounded to its storage dtype before the dot.
+    qf = (q * scale).to(q.dtype).reshape(b, sq, hkv, g, d).float()
+    nchunk = -(-sk // chunk)
+    pad = nchunk * chunk - sk
+    kc = F.pad(k, (0, 0, 0, 0, 0, pad)).reshape(b, nchunk, chunk, hkv, d)
+    vc = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(b, nchunk, chunk, hkv, dv)
+    dev = q.device
+    qpos = torch.arange(sq, device=dev) + q_offset  # [Sq]
+    m = torch.full((b, sq, hkv, g), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, hkv, g, dv), dtype=torch.float32, device=dev)
+    for c in range(nchunk):
+        kb, vb = kc[:, c], vc[:, c]
+        kpos = c * chunk + torch.arange(chunk, device=dev)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qf, kb.float())  # [B,Sq,Hkv,G,C]
+        if causal:
+            mask = kpos[None, :] <= qpos[:, None]
+        else:
+            mask = (kpos[None, :] >= 0) & (qpos[:, None] >= 0)
+        if window:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        mask = mask & (kpos[None, :] < sk)
+        s = s.masked_fill(~mask[None, :, None, None, :], _NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgc,bckv->bqkgv", p.to(vb.dtype).float(), vb.float()
+        )
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-37)
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+# ------------------------------------------------------------------------ GQA
+def gqa_params(generator, cfg: ModelConfig, *, layers: int = 0, dtype, device) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    kw = dict(layers=layers, dtype=dtype, device=device)
+    p = {
+        "wq": param(generator, (d, h * hd), **kw),
+        "wk": param(generator, (d, hkv * hd), **kw),
+        "wv": param(generator, (d, hkv * hd), **kw),
+        "wo": param(generator, (h * hd, d), **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = param(generator, (h * hd,), init="zeros", **kw)
+        p["bk"] = param(generator, (hkv * hd,), init="zeros", **kw)
+        p["bv"] = param(generator, (hkv * hd,), init="zeros", **kw)
+    return p
+
+
+def _qkv(p, x, cfg: ModelConfig, rope_fn):
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
+    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
+    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
+    q = rope_fn(q)
+    k = rope_fn(k)
+    return q, k, v
+
+
+def gqa_attend(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    rope_fn,
+    *,
+    window: int = 0,
+    chunk: int = 1024,
+    return_cache: bool = False,
+):
+    """Full/windowed causal self-attention for train & prefill."""
+    q, k, v = _qkv(p, x, cfg, rope_fn)
+    o = flash_attention(q, k, v, causal=True, window=window, chunk=chunk)
+    y = dense(o.reshape(*x.shape[:2], -1), p["wo"])
+    if return_cache:
+        return y, (k, v)
+    return y
+
+
+def gqa_decode(
+    p: dict,
+    x: torch.Tensor,  # [B, 1, d]
+    cfg: ModelConfig,
+    rope_fn,
+    cache: tuple[torch.Tensor, torch.Tensor],  # k/v [B, S_cache, Hkv, hd]
+    pos: int,  # number of tokens already in cache
+    *,
+    window: int = 0,
+):
+    """Single-token decode.  ``window``>0 => ring-buffer cache of that size.
+
+    The new K/V row is written into ``cache`` in place (the reference
+    returns fresh, donated buffers): callers own their caches, one set per
+    request.  A slot outside the cache raises, where the reference's
+    ``dynamic_update_slice`` would clamp it silently.
+    """
+    pos = operator.index(pos)
+    b = x.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
+    k = dense(x, p["wk"], p.get("bk")).reshape(b, 1, hkv, hd)
+    v = dense(x, p["wv"], p.get("bv")).reshape(b, 1, hkv, hd)
+    q = rope_fn(q)
+    k = rope_fn(k)
+    ck, cv = cache
+    s_cache = ck.shape[1]
+    slot = pos % s_cache if window else pos
+    if not 0 <= slot < s_cache:
+        raise IndexError(f"decode position {pos} outside a cache of {s_cache}")
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    kpos = torch.arange(s_cache, device=x.device)
+    if window:
+        # ring buffer: entry at slot j holds absolute position
+        # pos - ((slot - j) mod S_cache)
+        abs_pos = pos - torch.remainder(slot - kpos, s_cache)
+        valid = (abs_pos >= 0) & (abs_pos > pos - window)
+    else:
+        valid = kpos <= pos
+    g = h // hkv
+    qf = (q * (1.0 / math.sqrt(hd))).to(ck.dtype).reshape(b, 1, hkv, g, hd)
+    s = torch.einsum("bqkgd,bckd->bqkgc", qf.float(), ck.float())
+    s = s.masked_fill(~valid[None, None, None, None, :], _NEG)
+    a = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgc,bckv->bqkgv", a.to(cv.dtype).float(), cv.float())
+    y = dense(o.reshape(b, 1, h * hd).to(x.dtype), p["wo"])
+    return y, (ck, cv)

@@ -1,0 +1,270 @@
+"""Model assembly for decoder-only LMs, as in ``repro/models/lm.py``.
+
+The layer stack is grouped into runs of identical block kinds (see
+``ModelConfig.scan_groups``).  As in the reference, each run's parameters
+are stacked ``[L, ...]``, and so are its caches (a list of groups, a tuple
+per block kind, leaves ``[L, B, S, Hkv, hd]``); the reference's
+``lax.scan`` over a run becomes a Python loop over views of the stack.
+
+Public entry points (functions over plain nested dicts of tensors):
+  init(cfg, generator)          -> params
+  forward(params, batch, cfg)   -> (logits [B, S, vocab] f32, aux loss)
+  prefill(params, batch, cfg)   -> (last-position logits, caches)
+  decode_step(params, tok, caches, pos, cfg) -> (logits, caches)
+  init_caches / pad_caches / param_count
+
+``decode_step`` writes each new K/V row into ``caches`` in place; the caller
+owns them (one set per request).  ``loss_fn`` and multi-token prediction come
+with the port's training slice; encoder-decoder and vision-frontend models
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import operator
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+
+from . import blocks as blk
+from .config import ModelConfig
+from .layers import param, rms_norm, softcap
+
+__all__ = [
+    "init",
+    "forward",
+    "prefill",
+    "decode_step",
+    "init_caches",
+    "pad_caches",
+    "param_count",
+]
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    """``cfg.dtype`` ("bfloat16", "float32", ...) as a torch dtype."""
+    return getattr(torch, name)
+
+
+def _group_kinds(group_kind: str) -> list[str]:
+    if group_kind.startswith("cycle:"):
+        return group_kind[len("cycle:") :].split("|")
+    return [group_kind]
+
+
+def _decoder_groups(cfg: ModelConfig):
+    if cfg.enc_layers:
+        raise blk.not_ported("xdec")
+    if cfg.frontend != "none":
+        raise blk.not_ported("frontend")
+    return cfg.scan_groups()
+
+
+def _embed_scale(cfg: ModelConfig) -> float:
+    return float(cfg.d_model) ** 0.5 if cfg.family == "hybrid" else 1.0
+
+
+def _unstack(tree, count: int) -> list:
+    """Per-layer views ``[tree[0], ..., tree[count-1]]`` of a stacked tree."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in subs} for i in range(count)]
+    if isinstance(tree, tuple):
+        subs = [_unstack(v, count) for v in tree]
+        return [tuple(s[i] for s in subs) for i in range(count)]
+    return list(tree.unbind(0))
+
+
+def _stack(trees: list):
+    """Inverse of :func:`_unstack` for per-layer tuples of tensors."""
+    if isinstance(trees[0], tuple):
+        return tuple(_stack([t[i] for t in trees]) for i in range(len(trees[0])))
+    return torch.stack(trees)
+
+
+def init(
+    cfg: ModelConfig,
+    generator: torch.Generator | None,
+    *,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> dict[str, Any]:
+    """The reference's parameter tree, drawn from ``generator`` on ``device``.
+
+    Leaves are stored in ``dtype`` (bf16, as the reference stores them);
+    norms start at zero.  ``device="meta"`` builds shapes only (no
+    generator needed), which is how :func:`param_count` counts.
+    """
+    dev = resolve_device(device)
+    if generator is None and dev.type != "meta":
+        raise ValueError("init draws from an explicit torch.Generator")
+    kw = dict(dtype=dtype, device=dev)
+    groups = _decoder_groups(cfg)
+    if cfg.mtp:
+        raise blk.not_ported("mtp")
+    tree: dict[str, Any] = {
+        "embed": param(generator, (cfg.vocab_padded, cfg.d_model), scale=0.02, **kw),
+        "groups": [
+            {
+                f"b{i}": blk.block_params(generator, cfg, k, layers=count, **kw)
+                for i, k in enumerate(_group_kinds(kind))
+            }
+            for kind, count in groups
+        ],
+        "final_norm": param(generator, (cfg.d_model,), init="zeros", **kw),
+    }
+    if not cfg.tie_embeddings:
+        tree["head"] = param(generator, (cfg.d_model, cfg.vocab_padded), scale=0.02, **kw)
+    return tree
+
+
+def _run_groups(params_groups, x, cfg: ModelConfig, aux, groups, want_cache=False):
+    """Apply every layer group; returns (x, aux_loss_sum, caches|None)."""
+    aux_total = 0.0
+    caches = []
+    for gp, (kind, count) in zip(params_groups, groups):
+        kinds = _group_kinds(kind)
+        per_layer = []
+        for layer_p in _unstack(gp, count):
+            cs = []
+            for i, k in enumerate(kinds):
+                x, a, c = blk.block_apply(
+                    layer_p[f"b{i}"], x, kind=k, cfg=cfg, aux=aux, want_cache=want_cache,
+                )
+                aux_total = aux_total + a
+                cs.append(c)
+            per_layer.append(tuple(cs))
+        if want_cache:
+            caches.append(_stack(per_layer))
+    return x, aux_total, (caches if want_cache else None)
+
+
+def _embed_tokens(params, tokens, cfg: ModelConfig):
+    x = params["embed"][tokens]
+    scale = _embed_scale(cfg)
+    if scale != 1.0:
+        x = x * scale
+    return x.to(_torch_dtype(cfg.dtype))
+
+
+def _logits(params, x, cfg: ModelConfig):
+    """f32 logits; the head product runs in the activation dtype and padded
+    vocab columns are masked."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = softcap((x @ head.to(x.dtype)).float(), cfg.logits_softcap)
+    if cfg.vocab_padded != cfg.vocab:
+        logits[..., cfg.vocab :] = -2.0e38
+    return logits
+
+
+def _make_aux(batch, cfg: ModelConfig, chunk=1024):
+    if cfg.mrope:
+        positions = batch["positions"]  # [3, B, S]
+    else:
+        tokens = batch["tokens"]
+        positions = batch.get("positions")
+        if positions is None:
+            b, s = tokens.shape
+            positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    return {"positions": positions, "chunk": chunk}
+
+
+def forward(params, batch, cfg: ModelConfig, chunk: int = 1024):
+    """Full-sequence forward.  batch: tokens [B,S] (and optional positions).
+    Returns (logits [B, S, vocab_padded] f32, aux loss)."""
+    groups = _decoder_groups(cfg)
+    aux = _make_aux(batch, cfg, chunk)
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    x, aux_loss, _ = _run_groups(params["groups"], x, cfg, aux, groups)
+    return _logits(params, x, cfg), aux_loss
+
+
+# ------------------------------------------------------------------- serving
+def init_caches(
+    cfg: ModelConfig,
+    bsz: int,
+    cache_len: int,
+    dtype: torch.dtype | None = None,
+    *,
+    device: str | torch.device = "cuda",
+):
+    """Zero caches in the layout ``prefill`` returns."""
+    dtype = dtype or _torch_dtype(cfg.dtype)
+    dev = resolve_device(device)
+    return [
+        tuple(
+            blk.block_init_cache(cfg, k, bsz, cache_len, dtype, layers=count, device=dev)
+            for k in _group_kinds(kind)
+        )
+        for kind, count in _decoder_groups(cfg)
+    ]
+
+
+def prefill(params, batch, cfg: ModelConfig, chunk: int = 1024):
+    """Run the prompt; returns (last-position logits [B, 1, vocab], caches)."""
+    groups = _decoder_groups(cfg)
+    aux = _make_aux(batch, cfg, chunk)
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    x, _, caches = _run_groups(params["groups"], x, cfg, aux, groups, want_cache=True)
+    return _logits(params, x[:, -1:, :], cfg), caches
+
+
+def pad_caches(caches, cfg: ModelConfig, cache_len: int):
+    """Grow prefill caches to ``cache_len`` along the sequence so decoding
+    can continue (zeros after the prompt)."""
+    out = []
+    for cache, (kind, _count) in zip(caches, _decoder_groups(cfg)):
+        out.append(tuple(
+            tuple(_pad_seq(x, cache_len) for x in cache[i])
+            for i, _k in enumerate(_group_kinds(kind))
+        ))
+    return out
+
+
+def _pad_seq(x: torch.Tensor, cache_len: int) -> torch.Tensor:
+    cur = x.shape[2]  # [L, B, S, ...]
+    if cur >= cache_len:
+        return x
+    pad = [0, 0] * (x.ndim - 3) + [0, cache_len - cur]
+    return F.pad(x, pad)
+
+
+def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig):
+    """One decode step.  tokens [B, 1]; ``pos`` a Python int, the number of
+    tokens already in the caches, which are updated in place."""
+    pos = operator.index(pos)
+    bsz = tokens.shape[0]
+    shape = (3, bsz, 1) if cfg.mrope else (bsz, 1)
+    aux = {"positions": torch.full(shape, pos, device=tokens.device), "chunk": 1024}
+    x = _embed_tokens(params, tokens, cfg)
+    for gp, cache, (kind, count) in zip(params["groups"], caches, _decoder_groups(cfg)):
+        kinds = _group_kinds(kind)
+        for layer_p, layer_c in zip(_unstack(gp, count), _unstack(cache, count)):
+            for i, k in enumerate(kinds):
+                x, _ = blk.block_decode(
+                    layer_p[f"b{i}"], x, kind=k, cfg=cfg, aux=aux, cache=layer_c[i], pos=pos,
+                )
+    return _logits(params, x, cfg), caches
+
+
+# ------------------------------------------------------------------ counting
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the tree's shapes on the ``meta`` device."""
+    if active_only and cfg.moe is not None:
+        raise blk.not_ported("attn_moe")
+    tree = init(cfg, None, device="meta")
+    total = 0
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        else:
+            total += node.numel()
+    return total

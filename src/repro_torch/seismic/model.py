@@ -21,22 +21,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.fd3d import fd3d_step
 
 __all__ = [
     "Shot", "SeismicModel", "ricker", "run_shot", "make_demo_model",
     "make_shot_grid", "resolve_device",
 ]
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA request without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev} was requested but torch.cuda.is_available() is false"
-        )
-    return dev
 
 
 def ricker(

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port on the card: its CUDA kernel against its plain PyTorch version,
+and the serving path's SMOKE model against the same model on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
 ``torch.cuda.is_available()`` is false; the decision is taken inside the
@@ -8,11 +9,20 @@ where only the port is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke
 from repro_torch.core import A2WSRuntime
+from repro_torch.launch.serve import make_replica_generate
+from repro_torch.models import lm
+from repro_torch.serve import Replica, ServePool
 from repro_torch.kernels.fd3d import fd3d as tkernel
 from repro_torch.kernels.fd3d import fd3d_step, ref
 from repro_torch.seismic import make_demo_model, make_shot_grid, run_shot
@@ -80,3 +90,62 @@ def test_a2ws_on_streams_matches_cpu(cuda):
         want = run_shot(cpu, shot.src, shot.rec_array(), nt=60).numpy()
         peak = np.abs(want).max()
         np.testing.assert_allclose(results[shot.src], want, rtol=1e-4, atol=1e-4 * peak)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def test_smoke_model_on_card_matches_cpu(cuda):
+    """phi4 SMOKE in f32, the same weights on the card and on the CPU:
+    forward, prefill and the decode steps continuing it agree within 1e-4
+    (f32 products in full f32 on both; only the summation order differs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke("phi4-mini-3.8b").with_(dtype="float32")
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    card = _to(cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)))
+    want, _ = lm.forward(cpu, {"tokens": toks}, cfg)
+    got, _ = lm.forward(card, {"tokens": toks.to(cuda)}, cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    (wl, wc), (gl, gc) = (lm.prefill(p, {"tokens": t[:, :8]}, cfg)
+                          for p, t in ((cpu, toks), (card, toks.to(cuda))))
+    torch.testing.assert_close(gl.cpu(), wl, atol=1e-4, rtol=1e-4)
+    wc, gc = lm.pad_caches(wc, cfg, 12), lm.pad_caches(gc, cfg, 12)
+    for i in range(8, 12):
+        wl, wc = lm.decode_step(cpu, toks[:, i : i + 1], wc, i, cfg)
+        gl, gc = lm.decode_step(card, toks[:, i : i + 1].to(cuda), gc, i, cfg)
+        torch.testing.assert_close(gl.cpu(), wl, atol=1e-4, rtol=1e-4)
+
+
+def test_servepool_on_card_streams(cuda):
+    """Two replicas on their own streams serve bf16 SMOKE requests; each
+    completion equals the request generated alone on the card."""
+    cfg = get_smoke("phi4-mini-3.8b")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    torch.cuda.synchronize()
+    alone = make_replica_generate(cfg, params, 4)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (8, 6))
+    want = [alone({"tokens": p})["completion"] for p in prompts]
+    pool = ServePool([Replica(f"r{i}", make_replica_generate(cfg, params, 4),
+                              slow_factor=1.0 + 3 * i) for i in range(2)])
+    futs = pool.submit_wave([{"tokens": p} for p in prompts])
+    assert [f.result(timeout=120)["completion"] for f in futs] == want
+    assert sum(pool.shutdown().per_worker_tasks) == 8
+
+
+def test_serve_launcher_device_cpu_on_card_machine(cuda):
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b",
+         "--device", "cpu", "--requests", "2", "--prompt-len", "6", "--new-tokens", "3",
+         "--open-arrival", "--rate", "40"],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "on cpu" in proc.stdout

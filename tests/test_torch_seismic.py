@@ -153,7 +153,8 @@ def test_sponge_damps_boundary_energy():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*ROOT.glob("src/repro_torch/**/*.py"),
                                        ROOT / "chip_smoke.py",
-                                       ROOT / "examples" / "seismic_shots_torch.py"]
+                                       *ROOT.glob("examples/*_torch.py"),
+                                       *ROOT.glob("scripts/*_torch.py")]
 ))
 def test_port_source_imports_no_jax_nor_reference(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -170,19 +171,35 @@ def test_port_source_imports_no_jax_nor_reference(path):
 
 def test_port_runs_with_jax_and_reference_blocked():
     """The port imports neither ``jax`` nor anything of ``repro``: with both
-    blocked in ``sys.modules`` it imports and runs one CPU shot."""
+    blocked in ``sys.modules`` it imports, runs one CPU shot, and serves a
+    SMOKE model: one greedy generation and a 2-replica CPU ServePool."""
     code = textwrap.dedent(
         """
         import sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
+        import numpy as np
+        import torch
         import repro_torch, repro_torch.core, repro_torch.kernels.fd3d
+        import repro_torch.configs, repro_torch.models, repro_torch.serve
+        from repro_torch.launch.serve import generate, make_replica_generate
+        from repro_torch.models import lm
+        from repro_torch.serve import Replica, ServePool
         from repro_torch.seismic import make_demo_model, make_shot_grid, run_shot
         from repro_torch.seismic.tasks import make_shot_task
         m = make_demo_model(n=12, device="cpu")
         shot = make_shot_grid(m, 1)[0]
         s = run_shot(m, shot.src, shot.rec_array(), nt=10)
         assert s.shape == (10, 8) and bool(s.isfinite().all())
+        cfg = repro_torch.configs.get_smoke("minitron-4b")
+        params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        out = generate(cfg, params, torch.zeros((1, 4), dtype=torch.long), 3)
+        assert out.shape == (1, 3)
+        pool = ServePool([Replica(f"r{i}", make_replica_generate(cfg, params, 2))
+                          for i in range(2)])
+        futs = pool.submit_wave([{"tokens": np.arange(4) + k} for k in range(4)])
+        assert all(len(f.result(timeout=60)["completion"]) == 2 for f in futs)
+        assert sum(pool.shutdown().per_worker_tasks) == 4
         bad = [k for k, v in sys.modules.items() if v is not None
                and (k in ("jax", "repro") or k.startswith(("jax.", "repro.")))]
         assert not bad, bad

@@ -35,7 +35,17 @@ Phases (each prints its lines; any failure exits non-zero):
             {1, 1, 4}, 12 Poisson requests of 128 + 32 tokens at 1.5x the rate
             one replica sustains alone; every request is served, and
             requests served by each replica, one of them stolen, give the
-            same completion run alone.
+            same completion run alone;
+10. sched   the device scheduler (``repro_torch.core.device_sched``): Eq. 5
+            and the γ-rounding on 10^5 random windows on the card against
+            the CPU (rates within SCHED_RTOL, γ equal); ``virtual_run`` at
+            scripts/sched_cell.py's configuration (P=256, R=51, max_steal
+            16, 7680 tasks), packed and baseline, on the card against the
+            same run on the CPU with the same draws (integer state equal,
+            makespan within SCHED_RTOL; a split is traced to its first round
+            and field), conservation of every task id, tasks executed per
+            speed quarter and tasks moved; the same at P=1024, R=204, then
+            its ms per round and peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -85,6 +95,12 @@ F32_LOGIT_TOL = 2e-3  # atol = rtol, the reference's own (tests/test_decode_cons
 # the argmax, which must match in every comparison:
 BF16_LOGIT_ATOL = 0.2
 BF16_LOGIT_REL_L2 = 0.05
+# Phase 10: scripts/sched_cell.py's configuration, and the same at 4x the workers.
+SCHED_CELL = (256, 51, 16, 30)   # P, radius (20% of P), max_steal, tasks per worker
+SCHED_BIG = (1024, 204, 16, 30)
+SCHED_WINDOWS = 100_000
+SCHED_RTOL = 1e-6
+SCHED_MAX_ROUNDS = 4096
 
 
 class SmokeError(RuntimeError):
@@ -263,6 +279,7 @@ def run() -> dict:
     del model, shots, seismograms, task_fn, rt, alone, want
     torch.cuda.empty_cache()
     serve_phases(torch, np, gen, torch.device("cuda"))
+    sched_phase(torch, np, torch.device("cuda"))
 
     print(json.dumps({"kernels": [{
         "name": "fd3d_step",
@@ -487,6 +504,149 @@ def same_as_alone(torch, np, lm, cfg, params, decode, dev, prompt, alone, pooled
     print(f"[serve-main] {what} differs from it run alone at token {j}: logits gap "
           f"{gap:.4e} between tokens {alone[j]} and {pooled[j]}")
     need(False, f"{what}: pooled completion differs from the request run alone")
+
+
+def quarter_speeds(p: int) -> list[float]:
+    return [s for s in (24.0, 16.0, 4.0, 1.0) for _ in range(p // 4)]
+
+
+def sched_states_equal(torch, a, b) -> str | None:
+    """The first field in which two scheduler states differ (NaN equals
+    NaN; queues compared on each worker's prefix [0, tail)), else None."""
+    for name in a._fields:
+        x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+        if name == "queue":
+            live = torch.arange(x.shape[1])[None, :] < a.tail.cpu()[:, None]
+            x, y = torch.where(live, x, -2), torch.where(live, y, -2)
+        same = (x == y) | (x.isnan() & y.isnan()) if x.is_floating_point() else x == y
+        if not bool(same.all()):
+            return name
+    return None
+
+
+def sched_first_split(torch, ds, cfg, packed: bool, dev) -> tuple[int, str] | None:
+    """Rerun both devices round by round on one CPU generator's draws, as
+    ``virtual_run`` draws them, and name the first round and field that split."""
+    p, radius, max_steal, per = cfg
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    states = {d: ds.init_state(p, [per] * p, quarter_speeds(p), radius, p * per, device=d)
+              for d in (cpu, dev)}
+    fns = {d: ds.make_round_fn(p, radius, max_steal, packed=packed, device=d) for d in states}
+    for rnd in range(1, SCHED_MAX_ROUNDS + 1):
+        g = ds.gumbel_draws((p, 2 * radius + 1), gen, cpu)
+        states = {d: fns[d](s, gumbel=g.to(d)) for d, s in states.items()}
+        field = sched_states_equal(torch, states[dev], states[cpu])
+        if field is not None:
+            return rnd, field
+        if int((states[cpu].tail - states[cpu].head).sum()) == 0:
+            return None
+    return None
+
+
+def sched_check_conserved(torch, state, rounds: int, num_tasks: int, what: str) -> None:
+    tail = state.tail.cpu()
+    queue = state.queue.cpu()
+    ids = torch.cat([queue[i, : tail[i]] for i in range(queue.shape[0])])
+    need(torch.equal(ids.sort().values, torch.arange(num_tasks, dtype=torch.int32)),
+         f"{what}: the queues do not hold every task id exactly once")
+    need(torch.equal(state.head.cpu(), tail), f"{what}: head != tail at the end")
+    need(int(state.executed.sum()) == num_tasks,
+         f"{what}: executed {int(state.executed.sum())} of {num_tasks}")
+    need(rounds < SCHED_MAX_ROUNDS, f"{what}: hit max_rounds {SCHED_MAX_ROUNDS}")
+
+
+def sched_phase(torch, np, dev) -> None:
+    """Phase 10: the device scheduler on ``dev`` against the CPU."""
+    from repro_torch.core import device_sched as ds
+
+    cpu = torch.device("cpu")
+    radius = SCHED_CELL[1]
+    w = 2 * radius + 1
+
+    # (a) Eq. 5 and the γ-rounding on random windows ----------------------
+    rng = np.random.default_rng(0)
+    win_n = rng.integers(0, 40, (SCHED_WINDOWS, w)).astype(np.float32)
+    win_t = rng.uniform(0.05, 4.0, (SCHED_WINDOWS, w)).astype(np.float32)
+    win_t[rng.random((SCHED_WINDOWS, w)) < 0.3] = np.nan
+    win_t[:, radius] = rng.uniform(0.05, 4.0, SCHED_WINDOWS)
+    args = [torch.from_numpy(a) for a in (win_n, win_t)]
+    rate = {d: ds.steal_rate_window(*(a.to(d) for a in args), radius).cpu() for d in (dev, cpu)}
+    rel = ((rate[dev] - rate[cpu]).abs() / rate[cpu].abs().clamp_min(1e-30)).max().item()
+    g_args = [torch.from_numpy(rng.uniform(0, 12, SCHED_WINDOWS).astype(np.float32))]
+    g_args += [torch.from_numpy(a) for a in (win_n[:, 0], win_t[:, radius], win_n[:, 1],
+                                             np.nan_to_num(win_t[:, 1], nan=np.inf))]
+    gam = {d: ds.gamma_round(*(a.to(d) for a in g_args)).cpu() for d in (dev, cpu)}
+    n_gamma = int((gam[dev] != gam[cpu]).sum())
+    print(f"[sched] {SCHED_WINDOWS} windows of {w} cells (30% unknown): steal rate on the "
+          f"card vs the CPU max relative gap {rel:.3e} (limit {SCHED_RTOL}); gamma_round "
+          f"differs in {n_gamma} of {SCHED_WINDOWS}")
+    need(bool(torch.isfinite(rate[cpu]).all()), "steal rates not finite")
+    need(rel <= SCHED_RTOL, f"steal_rate_window: card vs CPU relative gap {rel}")
+    need(n_gamma == 0, f"gamma_round: card and CPU differ in {n_gamma} cases")
+
+    # (b), (c) scripts/sched_cell.py's configuration, card against CPU -----
+    for packed in (True, False):
+        sched_card_vs_cpu(torch, ds, SCHED_CELL, packed, dev)
+
+    # (d) four times the workers, card against CPU, then timed -------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sched_card_vs_cpu(torch, ds, SCHED_BIG, True, dev)
+    peak = torch.cuda.max_memory_allocated()
+    p, radius, max_steal, per = SCHED_BIG
+    round_fn = ds.make_round_fn(p, radius, max_steal, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = ds.init_state(p, [per] * p, quarter_speeds(p), radius, p * per, device=dev)
+    ms = []
+    while int((state.tail - state.head).sum()) > 0:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = round_fn(state, gen)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        need(len(ms) < SCHED_MAX_ROUNDS, f"P={p}: timed run hit max_rounds")
+    print(f"[sched] P={p} R={radius} packed: {float(np.median(ms)):.4f} ms per round "
+          f"(median of {len(ms)}, CUDA events, draws on the card); max_memory_allocated "
+          f"{_gb(peak)} (card run of the comparison)")
+
+
+def sched_card_vs_cpu(torch, ds, cfg, packed: bool, dev) -> None:
+    """``virtual_run`` at ``cfg`` on the card and on the CPU with the same
+    draws: integer state equal, makespan within SCHED_RTOL, every task id
+    conserved.  Prints the rounds, the makespan beside its bounds, the tasks
+    executed per speed quarter and the tasks run away from their first
+    worker."""
+    p, radius, max_steal, per = cfg
+    cpu = torch.device("cpu")
+    num_tasks = p * per
+    speeds = quarter_speeds(p)
+    what = f"P={p} R={radius} {'packed' if packed else 'baseline'}"
+    runs = {d: ds.virtual_run(p, speeds, num_tasks, radius, max_steal, device=d,
+                              packed=packed, generator=torch.Generator().manual_seed(0))
+            for d in (cpu, dev)}
+    (got, rounds, makespan), (want, want_rounds, want_ms) = runs[dev], runs[cpu]
+    need(got.queue.device.type == dev.type, f"{what}: state left {dev}")
+    field = sched_states_equal(torch, got, want)
+    if rounds != want_rounds or field is not None:
+        split = sched_first_split(torch, ds, cfg, packed, dev)
+        need(False, f"{what}: card and CPU split (rounds {rounds} vs {want_rounds}, "
+                    f"final field {field}); first split at (round, field) {split}")
+    need(abs(makespan - want_ms) <= SCHED_RTOL * max(1.0, abs(want_ms)),
+         f"{what}: makespan {makespan} vs {want_ms} on the CPU")
+    sched_check_conserved(torch, got, rounds, num_tasks, what)
+    queue, tail = got.queue.cpu(), got.tail.cpu()
+    live = torch.arange(num_tasks)[None, :] < tail[:, None]
+    home = torch.div(queue, per, rounding_mode="floor")  # block partition: per tasks each
+    moved = int((live & (home != torch.arange(p)[:, None])).sum())
+    print(f"[sched] {what}, max_steal {max_steal}, {num_tasks} tasks: {rounds} rounds, "
+          f"makespan {makespan} (static partition {max(per / s for s in speeds)}, balanced "
+          f"{num_tasks / sum(speeds):.4f}); card == CPU in rounds, executed, head, tail, "
+          f"queues; executed per speed quarter {{24,16,4,1}} "
+          f"{got.executed.cpu().view(4, -1).sum(1).tolist()}; {moved} tasks run by "
+          f"another worker than their first")
 
 
 def main() -> int:

@@ -1,9 +1,10 @@
 """A2WS — Adaptive Asynchronous Work-Stealing (the paper's contribution).
 
-The modules here are verbatim copies of their namesakes in ``src/repro/core``
-(a test holds them byte-identical): pure Python and numpy, so the port keeps
-its own copy instead of importing the JAX package.  The simulator, the trace
-generator and the jitted device scheduler are not ported yet.
+The modules here, but for ``device_sched``, are verbatim copies of their
+namesakes in ``src/repro/core`` (a test holds them byte-identical): pure
+Python and numpy, so the port keeps its own copy instead of importing the JAX
+package.  ``device_sched`` is the port of the reference's jitted SPMD
+scheduler to torch tensors with a leading worker dimension.
 
 Layers:
   steal        Eqs. 2-10 (steal rate, γ-rounding, victim selection)
@@ -15,6 +16,9 @@ Layers:
   netfault     network-fault plane for the steal fabric
   a2ws         policy-parametric threaded WorkerPool substrate (Algorithm 1)
   baselines    LW (leader-workers) and CTWS (cyclic token) policy shims
+  simulator    discrete-event virtual-time plane driving the same policies
+  trace        bursty diurnal arrival traces for the simulator
+  device_sched the scheduler vectorized over workers on one device (card or CPU)
 """
 
 from .a2ws import A2WSRuntime, RunStats, WorkerPool, partition_tasks
@@ -34,6 +38,7 @@ from .policy import (
     StealPlan,
     make_policy,
 )
+from .simulator import SimConfig, SimResult, simulate, table2_speeds
 from .steal import (
     StealDecision,
     gamma,
@@ -77,6 +82,10 @@ __all__ = [
     "LimpState",
     "SlowdownEvent",
     "SlowdownSchedule",
+    "SimConfig",
+    "SimResult",
+    "simulate",
+    "table2_speeds",
     "StealDecision",
     "gamma",
     "ideal_runtime",

@@ -1,5 +1,6 @@
 """The port on the card: its CUDA kernel against its plain PyTorch version,
-and the serving path's SMOKE model against the same model on the CPU.
+the serving path's SMOKE model against the same model on the CPU, and the
+device scheduler's run on the card against its run on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
 ``torch.cuda.is_available()`` is false; the decision is taken inside the
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.core import A2WSRuntime
+from repro_torch.core.device_sched import virtual_run
 from repro_torch.launch.serve import make_replica_generate
 from repro_torch.models import lm
 from repro_torch.serve import Replica, ServePool
@@ -149,3 +151,19 @@ def test_serve_launcher_device_cpu_on_card_machine(cuda):
     )
     assert proc.returncode == 0, proc.stderr
     assert "on cpu" in proc.stdout
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "baseline"])
+def test_device_sched_on_card_matches_cpu(cuda, packed):
+    """P=64, R=12: the same CPU generator's draws feed both runs, so every
+    integer field, the round count and the makespan must be equal."""
+    speeds = [s for s in (24.0, 16.0, 4.0, 1.0) for _ in range(16)]
+    runs = [virtual_run(64, speeds, 64 * 30, 12, max_steal=16, device=dev, packed=packed,
+                        generator=torch.Generator().manual_seed(0))
+            for dev in ("cpu", cuda)]
+    (want, want_rounds, want_ms), (got, got_rounds, got_ms) = runs
+    assert got.queue.device.type == "cuda"
+    assert got_rounds == want_rounds and got_ms == want_ms
+    for name in ("queue", "head", "tail", "executed"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    assert int(got.executed.sum()) == 64 * 30

@@ -171,8 +171,9 @@ def test_port_source_imports_no_jax_nor_reference(path):
 
 def test_port_runs_with_jax_and_reference_blocked():
     """The port imports neither ``jax`` nor anything of ``repro``: with both
-    blocked in ``sys.modules`` it imports, runs one CPU shot, and serves a
-    SMOKE model: one greedy generation and a 2-replica CPU ServePool."""
+    blocked in ``sys.modules`` it imports, runs one CPU shot, serves a SMOKE
+    model (one greedy generation and a 2-replica CPU ServePool), runs the
+    device scheduler at P=8 on the CPU and one simulation."""
     code = textwrap.dedent(
         """
         import sys
@@ -200,6 +201,13 @@ def test_port_runs_with_jax_and_reference_blocked():
         futs = pool.submit_wave([{"tokens": np.arange(4) + k} for k in range(4)])
         assert all(len(f.result(timeout=60)["completion"]) == 2 for f in futs)
         assert sum(pool.shutdown().per_worker_tasks) == 4
+        from repro_torch.core import simulator, device_sched
+        state, rounds, makespan = device_sched.virtual_run(
+            8, [24, 16, 8, 8, 4, 2, 1, 1], 192, 2, device="cpu")
+        assert int(state.executed.sum()) == 192 and 0 < rounds < 4096
+        res = simulator.simulate("a2ws", simulator.SimConfig(
+            speeds=simulator.table2_speeds("C1"), num_tasks=48))
+        assert sum(res.per_node_tasks) == 48
         bad = [k for k, v in sys.modules.items() if v is not None
                and (k in ("jax", "repro") or k.startswith(("jax.", "repro.")))]
         assert not bad, bad

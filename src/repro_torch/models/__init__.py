@@ -1,7 +1,7 @@
-from . import attention, blocks, bridge, layers, lm
+from . import attention, blocks, bridge, layers, lm, moe
 from .config import MLAConfig, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
 
 __all__ = [
-    "attention", "blocks", "bridge", "layers", "lm",
+    "attention", "blocks", "bridge", "layers", "lm", "moe",
     "MLAConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
 ]

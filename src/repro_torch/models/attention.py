@@ -1,4 +1,4 @@
-"""GQA attention: full, sliding-window and cached, as in
+"""Attention variants: GQA (full / sliding-window / cached) and MLA, as in
 ``repro/models/attention.py``.
 
 Train/prefill paths use a blocked softmax (a loop over KV chunks with a
@@ -12,7 +12,10 @@ the operands are widened to f32 before each score and value product, so a
 bf16 model keeps f32 scores and accumulators.  The masking constant
 ``-2e38`` is safe only in f32, which is where it is used.
 
-MLA (DeepSeek-V3) comes with the MoE/MLA slice.
+MLA (DeepSeek-V3) has both the *naive* expanded form (train/prefill) and the
+*absorbed* form for decode, where the cache holds only the compressed
+``c_kv`` (kv_lora_rank) plus the shared rope key and the up-projections are
+folded into the query/output products.
 """
 
 from __future__ import annotations
@@ -23,13 +26,16 @@ import operator
 import torch
 import torch.nn.functional as F
 
-from .config import ModelConfig
-from .layers import dense, param
+from .config import MLAConfig, ModelConfig
+from .layers import dense, param, rms_norm, rope
 
 __all__ = [
     "gqa_params",
     "gqa_attend",
     "gqa_decode",
+    "mla_params",
+    "mla_attend",
+    "mla_decode",
     "flash_attention",
 ]
 
@@ -188,3 +194,111 @@ def gqa_decode(
     o = torch.einsum("bqkgc,bckv->bqkgv", a.to(cv.dtype).float(), cv.float())
     y = dense(o.reshape(b, 1, h * hd).to(x.dtype), p["wo"])
     return y, (ck, cv)
+
+
+# ------------------------------------------------------------------------ MLA
+def mla_params(generator, cfg: ModelConfig, *, layers: int = 0, dtype, device) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(layers=layers, dtype=dtype, device=device)
+    return {
+        "w_dq": param(generator, (d, m.q_lora_rank), **kw),
+        "q_norm": param(generator, (m.q_lora_rank,), init="zeros", **kw),
+        "w_uq": param(generator, (m.q_lora_rank, h * qk), **kw),
+        "w_dkv": param(generator, (d, m.kv_lora_rank + m.qk_rope_dim), **kw),
+        "kv_norm": param(generator, (m.kv_lora_rank,), init="zeros", **kw),
+        "w_uk": param(generator, (m.kv_lora_rank, h * m.qk_nope_dim), **kw),
+        "w_uv": param(generator, (m.kv_lora_rank, h * m.v_dim), **kw),
+        "wo": param(generator, (h * m.v_dim, d), **kw),
+    }
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    q = dense(rms_norm(dense(x, p["w_dq"]), p["q_norm"], cfg.norm_eps), p["w_uq"])
+    q = q.reshape(b, s, cfg.n_heads, qk)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, x, cfg: ModelConfig, positions):
+    m: MLAConfig = cfg.mla
+    ckv = dense(x, p["w_dkv"])
+    c, k_rope = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank :]
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c, k_rope  # [B,S,kvr], [B,S,rope_d]
+
+
+def mla_attend(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    *,
+    chunk: int = 1024,
+    return_cache: bool = False,
+):
+    """Naive (expanded) MLA for train/prefill: q/k heads of nope + rope
+    dims, v heads of ``v_dim``, through :func:`flash_attention`."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c, k_rope = _mla_ckv(p, x, cfg, positions)
+    k_nope = dense(c, p["w_uk"]).reshape(b, s, h, m.qk_nope_dim)
+    v = dense(c, p["w_uv"]).reshape(b, s, h, m.v_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_dim)], -1)
+    o = flash_attention(q, k, v, causal=True, chunk=chunk)
+    y = dense(o.reshape(b, s, -1), p["wo"])
+    if return_cache:
+        return y, (c, k_rope)
+    return y
+
+
+def mla_decode(
+    p: dict,
+    x: torch.Tensor,  # [B, 1, d]
+    cfg: ModelConfig,
+    cache: tuple[torch.Tensor, torch.Tensor],  # c [B,S,kvr], k_rope [B,S,rope_d]
+    pos: int,
+):
+    """Absorbed-matrix MLA decode against the compressed cache.
+
+    The new row is written into ``cache`` in place at ``pos``, as
+    :func:`gqa_decode` does; a position outside the cache raises.  Every
+    product reads its operands in their storage dtype and accumulates in
+    f32, as the reference's ``preferred_element_type`` does.
+    """
+    pos = operator.index(pos)
+    m: MLAConfig = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    positions = torch.full((b, 1), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)  # [B,1,H,*]
+    c_new, kr_new = _mla_ckv(p, x, cfg, positions)
+    cc, ckr = cache
+    if not 0 <= pos < cc.shape[1]:
+        raise IndexError(f"decode position {pos} outside a cache of {cc.shape[1]}")
+    cc[:, pos] = c_new[:, 0].to(cc.dtype)
+    ckr[:, pos] = kr_new[:, 0].to(ckr.dtype)
+    # Absorb W_uk into q: q_eff[b,h,r] = q_nope . W_uk[., h, .]
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())  # [B,1,H,kvr]
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    s = (
+        torch.einsum("bqhr,bsr->bqhs", q_eff.to(cc.dtype).float(), cc.float())
+        + torch.einsum("bqhd,bsd->bqhs", q_rope.to(ckr.dtype).float(), ckr.float())
+    ) * scale
+    valid = torch.arange(cc.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~valid[None, None, None, :], _NEG)
+    a = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bqhs,bsr->bqhr", a.to(cc.dtype).float(), cc.float())  # [B,1,H,kvr]
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_dim)
+    o = torch.einsum("bqhr,rhv->bqhv", o_c.to(w_uv.dtype).float(), w_uv.float())
+    y = dense(o.reshape(b, 1, h * m.v_dim).to(x.dtype), p["wo"])
+    return y, (cc, ckr)

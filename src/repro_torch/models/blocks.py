@@ -3,10 +3,12 @@
 Block kinds ported so far
 -------------------------
   attn        GQA self-attention (+ gated MLP)        dense transformers
+  attn_dense  attention (GQA or MLA) + dense MLP      MoE models, first-k layers
+  attn_moe    attention (GQA or MLA) + MoE            MoE models
 
-Every other kind of the reference (``local``, ``attn_dense``, ``attn_moe``,
-``ssm``, ``rglru``, ``enc``, ``xdec``) and MLA attention raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+Every other kind of the reference (``local``, ``ssm``, ``rglru``, ``enc``,
+``xdec``) raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+ports it.
 
 Every apply returns ``(x, aux_loss, cache)`` so the layer loops in ``lm.py``
 stay uniform; decode returns ``(x, cache)``.
@@ -16,7 +18,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.roadmap import not_ported
+
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import _act, dense, mrope, param, rms_norm, rope
 
@@ -29,26 +34,8 @@ __all__ = [
     "not_ported",
 ]
 
-# Where in ROADMAP.md (§1, the queue) each missing part is ported.
-_ROADMAP_ITEM = {
-    "mla": "queue item 2, MoE + MLA",
-    "attn_dense": "queue item 2, MoE + MLA",
-    "attn_moe": "queue item 2, MoE + MLA",
-    "ssm": "queue item 3, SSM",
-    "rglru": "queue item 4, RG-LRU with local attention",
-    "local": "queue item 4, RG-LRU with local attention",
-    "enc": "queue item 5, encoder-decoder",
-    "xdec": "queue item 5, encoder-decoder",
-    "frontend": "queue item 6, VLM",
-    "mtp": "queue item 8, training",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a part of the reference the port does not have yet."""
-    return NotImplementedError(
-        f"{what!r} is not ported yet: ROADMAP.md §1, {_ROADMAP_ITEM[what]}"
-    )
+_PORTED = ("attn", "attn_dense", "attn_moe")
+_NOT_YET = ("local", "ssm", "rglru", "enc", "xdec")
 
 
 # ------------------------------------------------------------------ MLP bits
@@ -76,13 +63,17 @@ def make_rope_fn(cfg: ModelConfig, positions):
     return lambda x: rope(x, positions, cfg.rope_theta)
 
 
-def _check(cfg: ModelConfig, kind: str) -> None:
-    if kind in _ROADMAP_ITEM:
+def _check(kind: str) -> None:
+    if kind in _NOT_YET:
         raise not_ported(kind)
-    if kind != "attn":
+    if kind not in _PORTED:
         raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _attn_params(generator, cfg: ModelConfig, **kw):
     if cfg.mla is not None:
-        raise not_ported("mla")
+        return attn_mod.mla_params(generator, cfg, **kw)
+    return attn_mod.gqa_params(generator, cfg, **kw)
 
 
 # -------------------------------------------------------------------- params
@@ -90,50 +81,81 @@ def block_params(generator, cfg: ModelConfig, kind: str, *, layers: int = 0,
                  dtype, device) -> dict:
     """One block's parameters, each leaf stacked ``[layers, ...]`` when
     ``layers`` > 0 (the reference's scan-over-layers layout)."""
-    _check(cfg, kind)
+    _check(kind)
     kw = dict(layers=layers, dtype=dtype, device=device)
-    return {
+    p = {
         "norm1": param(generator, (cfg.d_model,), init="zeros", **kw),
-        "attn": attn_mod.gqa_params(generator, cfg, **kw),
+        "attn": _attn_params(generator, cfg, **kw),
         "norm2": param(generator, (cfg.d_model,), init="zeros", **kw),
-        "mlp": _mlp_params(generator, cfg, **kw),
     }
+    if kind == "attn_moe":
+        p["moe"] = moe_mod.moe_params(generator, cfg, **kw)
+    else:
+        dense_ff = kind == "attn_dense" and cfg.moe and cfg.moe.d_ff_dense
+        p["mlp"] = _mlp_params(generator, cfg, cfg.moe.d_ff_dense if dense_ff else None, **kw)
+    return p
 
 
 # --------------------------------------------------------------------- apply
+def _self_attn(p, x, cfg: ModelConfig, aux, *, window: int, want_cache: bool):
+    """Returns (y, cache | None)."""
+    if cfg.mla is not None:
+        out = attn_mod.mla_attend(p, x, cfg, aux["positions"], chunk=aux["chunk"],
+                                  return_cache=want_cache)
+    else:
+        out = attn_mod.gqa_attend(p, x, cfg, make_rope_fn(cfg, aux["positions"]),
+                                  window=window, chunk=aux["chunk"], return_cache=want_cache)
+    return out if want_cache else (out, None)
+
+
 def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
-    """Returns (x, aux_loss, cache)."""
-    _check(cfg, kind)
-    rope_fn = make_rope_fn(cfg, aux["positions"])
-    out = attn_mod.gqa_attend(
-        p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, rope_fn,
-        window=cfg.window, chunk=aux["chunk"], return_cache=want_cache,
+    """Returns (x, aux_loss, cache); the aux loss is the MoE load-balance
+    loss of an ``attn_moe`` block and 0 otherwise."""
+    _check(kind)
+    # As in the reference, only an "attn" block attends within cfg.window.
+    y, cache = _self_attn(
+        p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, aux,
+        window=cfg.window if kind == "attn" else 0, want_cache=want_cache,
     )
-    y, cache = out if want_cache else (out, None)
     x = x + y
-    x = x + _mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg)
-    return x, 0.0, cache
+    xn = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "attn_moe":
+        top_i, top_w, probs = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
+        aux_l = moe_mod.aux_load_balance_loss(probs, top_i, cfg.moe)
+        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg), aux_l, cache
+    return x + _mlp_apply(p["mlp"], xn, cfg), 0.0, cache
 
 
 # -------------------------------------------------------------------- decode
 def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
     """Single-token step.  Returns (x, cache'); ``cache`` is updated in place."""
-    _check(cfg, kind)
+    _check(kind)
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-    rope_fn = make_rope_fn(cfg, aux["positions"])
-    # As in the reference, only "local" blocks decode against a window: an
-    # "attn" block with cfg.window attends its whole cache here.
-    y, cache = attn_mod.gqa_decode(p["attn"], xn, cfg, rope_fn, cache, pos, window=0)
+    if cfg.mla is not None:
+        y, cache = attn_mod.mla_decode(p["attn"], xn, cfg, cache, pos)
+    else:
+        # As in the reference, only "local" blocks decode against a window:
+        # an "attn" block with cfg.window attends its whole cache here.
+        rope_fn = make_rope_fn(cfg, aux["positions"])
+        y, cache = attn_mod.gqa_decode(p["attn"], xn, cfg, rope_fn, cache, pos, window=0)
     x = x + y
-    x = x + _mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg)
-    return x, cache
+    xn = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "attn_moe":
+        top_i, top_w, _ = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
+        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg), cache
+    return x + _mlp_apply(p["mlp"], xn, cfg), cache
 
 
 # --------------------------------------------------------------------- cache
 def block_init_cache(cfg: ModelConfig, kind: str, bsz: int, cache_len: int, dtype,
                      *, layers: int, device):
-    """Zero K/V caches ``[layers, B, cache_len, Hkv, hd]``."""
-    _check(cfg, kind)
-    shape = (layers, bsz, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    """Zero caches: K/V ``[layers, B, cache_len, Hkv, hd]``, or for MLA the
+    compressed ``c`` ``[layers, B, cache_len, kv_lora_rank]`` and the rope
+    key ``[layers, B, cache_len, qk_rope_dim]``."""
+    _check(kind)
+    if cfg.mla is not None:
+        m = cfg.mla
+        shapes = [(layers, bsz, cache_len, r) for r in (m.kv_lora_rank, m.qk_rope_dim)]
+    else:
+        shapes = [(layers, bsz, cache_len, cfg.n_kv_heads, cfg.head_dim_)] * 2
+    return tuple(torch.zeros(s, dtype=dtype, device=device) for s in shapes)

@@ -21,6 +21,10 @@ from repro_torch.device import resolve_device
 
 __all__ = ["params_from_flat", "flatten"]
 
+# Leaves the reference stores in f32 whatever the model's dtype: the MoE
+# router (``repro/models/moe.py``, ``moe_params``).
+_F32_LEAVES = frozenset({"router"})
+
 
 def params_from_flat(
     flat: Mapping[str, np.ndarray],
@@ -29,7 +33,9 @@ def params_from_flat(
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict[str, Any]:
     """Nested params from ``{"a/0/b": array}``: numeric path parts index
-    lists, the others dict keys.  Floating leaves are cast to ``dtype``."""
+    lists, the others dict keys.  Floating leaves are cast to ``dtype``,
+    except those the reference keeps in f32 (the MoE router), which stay
+    f32 so that routing reads the same logits."""
     dev = resolve_device(device)
     root: dict = {}
     for key, arr in flat.items():
@@ -38,9 +44,12 @@ def params_from_flat(
             raise TypeError(f"{key}: leaf of dtype {arr.dtype}; widen it to f32 first")
         if not (arr.flags.writeable and arr.flags.c_contiguous):
             arr = np.array(arr)  # a tensor needs memory it may own and write
-        t = torch.from_numpy(arr)
-        t = t.to(device=dev, dtype=dtype if t.is_floating_point() else t.dtype)
         *parents, leaf = key.split("/")
+        t = torch.from_numpy(arr)
+        if t.is_floating_point():
+            t = t.to(device=dev, dtype=torch.float32 if leaf in _F32_LEAVES else dtype)
+        else:
+            t = t.to(device=dev)
         node = root
         for part in parents:
             node = node.setdefault(part, {})

@@ -26,6 +26,11 @@ __all__ = [
 ]
 
 
+# Elements drawn per f32 temporary: 256 MiB at most, and never more than one
+# layer's worth, so a stack's draw needs little beyond its stored result.
+_DRAW_CHUNK = 1 << 26
+
+
 def param(
     generator: torch.Generator | None,
     shape: tuple[int, ...],
@@ -41,9 +46,11 @@ def param(
 
     Draws a normal truncated at ±3 std in f32 from ``generator`` and stores
     it in ``dtype``: std is 1/sqrt(fan-in) (``shape[0]``) or the number
-    given; ``init="zeros"`` gives zeros.  On the ``meta`` device nothing is
-    drawn (shapes only).  torch's generator never reproduces
-    ``jax.random``'s bits: parity with the reference goes through
+    given; ``init="zeros"`` gives zeros.  The draw goes in pieces of at most
+    one layer and ``_DRAW_CHUNK`` elements, each widened to f32 only while
+    it is drawn (a stack of moonshot's experts is 8.9 G elements).  On the
+    ``meta`` device nothing is drawn (shapes only).  torch's generator never
+    reproduces ``jax.random``'s bits: parity with the reference goes through
     ``repro_torch.models.bridge``.
     """
     full = (layers, *shape) if layers else tuple(shape)
@@ -53,9 +60,17 @@ def param(
         std = 1.0 / math.sqrt(shape[0] if len(shape) > 1 else 1.0)
     else:
         std = float(scale)
-    v = torch.empty(full, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(v, 0.0, std, -3.0 * std, 3.0 * std, generator=generator)
-    return v.to(dtype)
+    out = torch.empty(full, dtype=dtype, device=device)
+    flat = out.view(-1)
+    step = min(math.prod(shape), _DRAW_CHUNK)
+    for lo in range(0, flat.numel(), step):
+        part = flat[lo : lo + step]
+        v = part if dtype == torch.float32 else torch.empty(
+            part.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(v, 0.0, std, -3.0 * std, 3.0 * std, generator=generator)
+        if v is not part:
+            part.copy_(v)
+    return out
 
 
 # ----------------------------------------------------------------- functional

@@ -3,8 +3,9 @@
 The layer stack is grouped into runs of identical block kinds (see
 ``ModelConfig.scan_groups``).  As in the reference, each run's parameters
 are stacked ``[L, ...]``, and so are its caches (a list of groups, a tuple
-per block kind, leaves ``[L, B, S, Hkv, hd]``); the reference's
-``lax.scan`` over a run becomes a Python loop over views of the stack.
+per block kind, leaves ``[L, B, S, Hkv, hd]``, or ``[L, B, S, r]`` for
+MLA's compressed cache); the reference's ``lax.scan`` over a run becomes a
+Python loop over views of the stack.
 
 Public entry points (functions over plain nested dicts of tensors):
   init(cfg, generator)          -> params
@@ -14,9 +15,11 @@ Public entry points (functions over plain nested dicts of tensors):
   init_caches / pad_caches / param_count
 
 ``decode_step`` writes each new K/V row into ``caches`` in place; the caller
-owns them (one set per request).  ``loss_fn`` and multi-token prediction come
-with the port's training slice; encoder-decoder and vision-frontend models
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+owns them (one set per request).  ``init`` builds the multi-token-prediction
+module's parameters (``tree["mtp"]``, DeepSeek-V3); ``loss_fn`` and the MTP
+forward come with the port's training slice.  Encoder-decoder and
+vision-frontend models raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.roadmap import not_ported
 
 from . import blocks as blk
+from .bridge import flatten
 from .config import ModelConfig
 from .layers import param, rms_norm, softcap
 
@@ -57,9 +62,9 @@ def _group_kinds(group_kind: str) -> list[str]:
 
 def _decoder_groups(cfg: ModelConfig):
     if cfg.enc_layers:
-        raise blk.not_ported("xdec")
+        raise not_ported("xdec")
     if cfg.frontend != "none":
-        raise blk.not_ported("frontend")
+        raise not_ported("frontend")
     return cfg.scan_groups()
 
 
@@ -103,8 +108,6 @@ def init(
         raise ValueError("init draws from an explicit torch.Generator")
     kw = dict(dtype=dtype, device=dev)
     groups = _decoder_groups(cfg)
-    if cfg.mtp:
-        raise blk.not_ported("mtp")
     tree: dict[str, Any] = {
         "embed": param(generator, (cfg.vocab_padded, cfg.d_model), scale=0.02, **kw),
         "groups": [
@@ -118,25 +121,40 @@ def init(
     }
     if not cfg.tie_embeddings:
         tree["head"] = param(generator, (cfg.d_model, cfg.vocab_padded), scale=0.02, **kw)
+    if cfg.mtp:  # DeepSeek-V3 multi-token prediction module (depth 1)
+        tree["mtp"] = {
+            "norm_h": param(generator, (cfg.d_model,), init="zeros", **kw),
+            "norm_e": param(generator, (cfg.d_model,), init="zeros", **kw),
+            "proj": param(generator, (2 * cfg.d_model, cfg.d_model), **kw),
+            "block": blk.block_params(generator, cfg, cfg.block_types()[-1], **kw),
+        }
     return tree
 
 
 def _run_groups(params_groups, x, cfg: ModelConfig, aux, groups, want_cache=False):
-    """Apply every layer group; returns (x, aux_loss_sum, caches|None)."""
+    """Apply every layer group; returns (x, aux_loss_sum, caches|None).
+
+    The aux loss is summed as the reference sums it: over a layer's blocks,
+    then over the group's layers, then over the groups."""
     aux_total = 0.0
     caches = []
     for gp, (kind, count) in zip(params_groups, groups):
         kinds = _group_kinds(kind)
         per_layer = []
+        layer_aux = []
         for layer_p in _unstack(gp, count):
             cs = []
+            a_sum = 0.0
             for i, k in enumerate(kinds):
                 x, a, c = blk.block_apply(
                     layer_p[f"b{i}"], x, kind=k, cfg=cfg, aux=aux, want_cache=want_cache,
                 )
-                aux_total = aux_total + a
+                a_sum = a_sum + a
                 cs.append(c)
             per_layer.append(tuple(cs))
+            layer_aux.append(a_sum)
+        if torch.is_tensor(layer_aux[0]):  # a group of MoE blocks
+            aux_total = aux_total + torch.stack(layer_aux).sum()
         if want_cache:
             caches.append(_stack(per_layer))
     return x, aux_total, (caches if want_cache else None)
@@ -215,7 +233,8 @@ def prefill(params, batch, cfg: ModelConfig, chunk: int = 1024):
 
 def pad_caches(caches, cfg: ModelConfig, cache_len: int):
     """Grow prefill caches to ``cache_len`` along the sequence so decoding
-    can continue (zeros after the prompt)."""
+    can continue (zeros after the prompt): GQA's ``[L, B, S, Hkv, hd]`` and
+    MLA's ``[L, B, S, r]`` alike."""
     out = []
     for cache, (kind, _count) in zip(caches, _decoder_groups(cfg)):
         out.append(tuple(
@@ -229,7 +248,7 @@ def _pad_seq(x: torch.Tensor, cache_len: int) -> torch.Tensor:
     cur = x.shape[2]  # [L, B, S, ...]
     if cur >= cache_len:
         return x
-    pad = [0, 0] * (x.ndim - 3) + [0, cache_len - cur]
+    pad = [0, 0] * (x.ndim - 3) + [0, cache_len - cur]  # F.pad lists the last dim first
     return F.pad(x, pad)
 
 
@@ -253,18 +272,15 @@ def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig):
 
 # ------------------------------------------------------------------ counting
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Exact parameter count from the tree's shapes on the ``meta`` device."""
-    if active_only and cfg.moe is not None:
-        raise blk.not_ported("attn_moe")
-    tree = init(cfg, None, device="meta")
+    """Exact parameter count from the tree's shapes on the ``meta`` device;
+    ``active_only`` scales each expert stack (``moe/w1``, ``w2``, ``w3``) by
+    top_k/num_experts, as the reference does."""
     total = 0
-    stack = [tree]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-        elif isinstance(node, (list, tuple)):
-            stack.extend(node)
-        else:
-            total += node.numel()
+    for key, leaf in flatten(init(cfg, None, device="meta")).items():
+        n = leaf.numel()
+        parts = key.split("/")
+        expert = "moe" in parts and parts[-1] in ("w1", "w2", "w3")
+        if active_only and cfg.moe is not None and expert:
+            n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+        total += n
     return total

@@ -1,0 +1,24 @@
+"""Where in ``ROADMAP.md`` (§1, the queue) each part of the reference that
+the port lacks is ported: one map, read by every ``NotImplementedError``
+the port raises for a missing part."""
+
+from __future__ import annotations
+
+__all__ = ["not_ported"]
+
+_ROADMAP_ITEM = {
+    "ssm": "queue item 2, SSM",
+    "rglru": "queue item 3, RG-LRU with local attention",
+    "local": "queue item 3, RG-LRU with local attention",
+    "enc": "queue item 4, encoder-decoder",
+    "xdec": "queue item 4, encoder-decoder",
+    "frontend": "queue item 5, VLM",
+    "sharded serving": "queue item 6, input_specs and sharded serving",
+}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    """The error for a part of the reference the port does not have yet."""
+    return NotImplementedError(
+        f"{what!r} is not ported yet: ROADMAP.md §1, {_ROADMAP_ITEM[what]}"
+    )

@@ -8,7 +8,8 @@ return callables over ``lm.prefill``/``lm.decode_step``.  PyTorch runs them
 eagerly; there is nothing to trace.  They take a mesh-free context only
 (``None``, or an object whose ``mesh`` is ``None``): the KV-cache sharding
 policy (``cache_pspecs``/``cache_shardings``) comes with the port's parallel
-slice.  ``abstract_caches`` gives the cache tree as ``meta`` tensors.
+slice.  ``abstract_caches`` gives the cache tree as ``meta`` tensors: K/V
+for GQA blocks, the compressed ``c`` and rope key for MLA.
 
 Host plane
 ----------
@@ -39,8 +40,8 @@ from repro_torch.core.netfault import NetFaultSchedule
 from repro_torch.core.policy import SchedPolicy
 from repro_torch.core.topology import Topology
 from repro_torch.models import lm
-from repro_torch.models.blocks import not_ported
 from repro_torch.models.config import ModelConfig
+from repro_torch.roadmap import not_ported
 
 __all__ = [
     "abstract_caches",
@@ -58,10 +59,7 @@ __all__ = [
 # ----------------------------------------------------------------- structure
 def _mesh_free(ctx) -> None:
     if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            "sharded serving is not ported yet: ROADMAP.md §1, queue item 7, "
-            "input_specs and sharded serving"
-        )
+        raise not_ported("sharded serving")
 
 
 def abstract_caches(cfg: ModelConfig, bsz: int, cache_len: int):

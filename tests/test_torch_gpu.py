@@ -1,6 +1,7 @@
 """The port on the card: its CUDA kernel against its plain PyTorch version,
-the serving path's SMOKE model against the same model on the CPU, and the
-device scheduler's run on the card against its run on the CPU.
+the serving path's SMOKE models (dense, MoE, MLA) against the same models on
+the CPU, and the device scheduler's run on the card against its run on the
+CPU.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
 ``torch.cuda.is_available()`` is false; the decision is taken inside the
@@ -10,8 +11,10 @@ where only the port is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import os
 import subprocess
+from collections import deque
 import sys
 from pathlib import Path
 
@@ -24,6 +27,7 @@ from repro_torch.core import A2WSRuntime
 from repro_torch.core.device_sched import virtual_run
 from repro_torch.launch.serve import make_replica_generate
 from repro_torch.models import lm
+from repro_torch.models import moe as moe_mod
 from repro_torch.serve import Replica, ServePool
 from repro_torch.kernels.fd3d import fd3d as tkernel
 from repro_torch.kernels.fd3d import fd3d_step, ref
@@ -122,6 +126,73 @@ def test_smoke_model_on_card_matches_cpu(cuda):
         wl, wc = lm.decode_step(cpu, toks[:, i : i + 1], wc, i, cfg)
         gl, gc = lm.decode_step(card, toks[:, i : i + 1].to(cuda), gc, i, cfg)
         torch.testing.assert_close(gl.cpu(), wl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_smoke_model_on_card_matches_cpu(cuda, arch, dtype, monkeypatch):
+    """The MoE SMOKE models (deepseek's with MLA), the same weights on the
+    card and on the CPU, capacity raised so that no token drops: forward,
+    prefill and the decode steps continuing it.  f32 within 1e-4.  bf16
+    within 0.02 (``tests/test_torch_models.py``'s BF16_TOL), with the CPU's
+    routing replayed on the card: a bf16 ulp apart, a router near-tie may
+    pick another expert, which is not rounding."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke(arch).with_(dtype=str(dtype).removeprefix("torch."))
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=dtype)
+    card = _to(cpu, cuda)
+    assert card["groups"][-1]["b0"]["moe"]["router"].dtype == torch.float32
+    route, decisions = moe_mod.route, deque()
+
+    def pinned(router_w, x, m):
+        top_i, top_w, probs = route(router_w, x, m)
+        if dtype == torch.float32:
+            return top_i, top_w, probs
+        if x.is_cuda:
+            top_i, top_w = (t.to(x.device) for t in decisions.popleft())
+        else:
+            decisions.append((top_i, top_w))
+        return top_i, top_w, probs
+
+    monkeypatch.setattr(moe_mod, "route", pinned)
+    tol = 1e-4 if dtype == torch.float32 else 0.02
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol)
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)))
+    want, want_aux = lm.forward(cpu, {"tokens": toks}, cfg)
+    got, got_aux = lm.forward(card, {"tokens": toks.to(cuda)}, cfg)
+    close(got, want)
+    assert float(got_aux) == pytest.approx(float(want_aux), rel=1e-3)
+    wl, wc = lm.prefill(cpu, {"tokens": toks[:, :8]}, cfg)
+    gl, gc = lm.prefill(card, {"tokens": toks[:, :8].to(cuda)}, cfg)
+    close(gl, wl)
+    wc, gc = lm.pad_caches(wc, cfg, 12), lm.pad_caches(gc, cfg, 12)
+    for i in range(8, 12):
+        wl, wc = lm.decode_step(cpu, toks[:, i : i + 1], wc, i, cfg)
+        gl, gc = lm.decode_step(card, toks[:, i : i + 1].to(cuda), gc, i, cfg)
+        close(gl, wl)
+    assert not decisions
+
+
+def test_moe_servepool_on_card_repeats(cuda):
+    """Two replicas of moonshot SMOKE in bf16 on their own streams, at the
+    published capacity factor (tokens drop): every pooled completion equals
+    the request generated alone, so the MoE combine gives the same bits on
+    every stream."""
+    cfg = get_smoke("moonshot-v1-16b-a3b")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    torch.cuda.synchronize()
+    alone = make_replica_generate(cfg, params, 4)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (6, 9))
+    want = [alone({"tokens": p})["completion"] for p in prompts]
+    pool = ServePool([Replica(f"r{i}", make_replica_generate(cfg, params, 4),
+                              slow_factor=1.0 + 3 * i) for i in range(2)])
+    futs = pool.submit_wave([{"tokens": p} for p in prompts])
+    assert [f.result(timeout=120)["completion"] for f in futs] == want
+    assert sum(pool.shutdown().per_worker_tasks) == 6
 
 
 def test_servepool_on_card_streams(cuda):

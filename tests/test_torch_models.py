@@ -1,5 +1,6 @@
-"""The port's dense-family model stack (``repro_torch.models``,
-``repro_torch.configs``) against the JAX reference on the CPU.
+"""The port's model stack (``repro_torch.models``, ``repro_torch.configs``):
+the dense family and the MoE/MLA family, against the JAX reference on the
+CPU.
 
 Inputs are made with numpy from a seed; parameters come from
 ``repro.models.lm.init`` and cross through ``repro_torch.models.bridge`` in
@@ -9,6 +10,7 @@ the reference's bf16 parameters as ``tests/test_decode_consistency.py`` does.
 """
 
 import dataclasses
+from collections import deque
 from pathlib import Path
 
 import jax
@@ -22,11 +24,13 @@ from repro.checkpoint.store import _flatten
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
+from repro.models import moe as jmoe
 import repro_torch.configs as tconfigs
 from repro_torch.models import attention as tattn
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.models import moe as tmoe
 from repro_torch.models.bridge import flatten, params_from_flat
 
 # SMOKE-size tensors: one intra-op thread is as fast, and leaves the other
@@ -35,6 +39,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 DENSE = ["phi4-mini-3.8b", "minitron-4b", "mistral-nemo-12b", "qwen1.5-32b"]
+MOE = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
 S = 16  # sequence length of the model comparisons
 F32_TOL = 1e-4  # logits, f32: summation order of CPU matmuls differs
 BF16_TOL = 0.02  # logits, bf16: a few bf16 ulps (2^-8 at 0.5); observed max 0.0056
@@ -110,11 +115,26 @@ def test_registry_matches():
     assert set(tconfigs.__all__) == set(jconfigs.__all__) - {"input_specs"}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_count_matches(arch):
     full = jconfigs.get_config(arch)
     assert tlm.param_count(tconfigs.get_config(arch)) == jlm.param_count(full)
     assert tconfigs.get_smoke(arch).param_count() == jconfigs.get_smoke(arch).param_count()
+    for get in (jconfigs.get_config, jconfigs.get_smoke):
+        want = jlm.param_count(get(arch), active_only=True)
+        assert tlm.param_count(getattr(tconfigs, get.__name__)(arch), active_only=True) == want
+
+
+def test_moe_full_counts():
+    """moonshot-v1-16b-a3b whole: 28,057,995,264 parameters (56.12 GB in
+    bf16), 3,974,301,696 active; deepseek-v3-671b at 4 layers without MTP
+    (the card's cut): 15,111,101,440."""
+    moon = tconfigs.get_config("moonshot-v1-16b-a3b")
+    assert moon.param_count() == 28_057_995_264
+    assert moon.active_param_count() == 3_974_301_696
+    ds4 = tconfigs.get_config("deepseek-v3-671b").with_(n_layers=4, mtp=False)
+    assert ds4.param_count() == 15_111_101_440 == jlm.param_count(
+        jconfigs.get_config("deepseek-v3-671b").with_(n_layers=4, mtp=False))
 
 
 def test_phi4_full_width_count():
@@ -140,6 +160,35 @@ def test_init_tree_matches_reference_layout(arch):
     assert abs(w.std().item() - std * 0.986) < 0.15 * std
 
 
+def _ref_dtypes(tree):
+    return {"/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path): leaf.dtype
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_init_tree_matches_reference_layout(arch):
+    """The MoE/MLA tree, deepseek's ``mtp`` module included: the reference's
+    paths and shapes, the router in f32 and the rest in bf16, as the
+    reference stores them."""
+    cfg = tconfigs.get_smoke(arch)
+    ours = flatten(tlm.init(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    jp = jlm.init(jconfigs.get_smoke(arch), jax.random.key(0))[0]
+    theirs, dtypes = _flatten(jp), _ref_dtypes(jp)
+    assert ours.keys() == theirs.keys()
+    assert any(k.startswith("mtp/") for k in ours) == cfg.mtp
+    for k, t in ours.items():
+        assert tuple(t.shape) == theirs[k].shape, k
+        assert str(t.dtype).removeprefix("torch.") == str(dtypes[k]), k
+        if "norm" in k:
+            assert not t.any(), k
+    assert ours["groups/0/b0/norm1"].dtype == torch.bfloat16
+    routers = [k for k in ours if k.endswith("/router")]
+    assert routers and all(ours[k].dtype == torch.float32 for k in routers)
+    # the experts' fan-in is shape[0] of one layer's [E, d, f]: num_experts
+    w1 = ours[next(k for k in ours if k.endswith("moe/w1"))].float()
+    assert w1.abs().max() <= 3 / np.sqrt(cfg.moe.num_experts) + 1e-2
+
+
 def test_init_is_seeded():
     cfg = tconfigs.get_smoke("phi4-mini-3.8b")
     a = flatten(tlm.init(cfg, torch.Generator().manual_seed(3), device="cpu"))
@@ -147,8 +196,7 @@ def test_init_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b",
-                                  "recurrentgemma-2b", "mamba2-2.7b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-2.7b",
                                   "seamless-m4t-medium", "qwen2-vl-2b"])
 def test_other_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, queue item"):
@@ -280,18 +328,21 @@ def test_gqa_decode_at_last_slot_matches(arch, window, pos):
 
 
 # -------------------------------------------------------------------- model
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_matches(arch):
+    """Logits and the aux loss (the MoE load-balance loss summed over
+    layers; 0 for dense models)."""
     jcfg, tcfg, jp, tp = _models(arch)
     toks = _tokens(tcfg)
-    want, _ = jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg, chunk=8)
+    want, want_aux = jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg, chunk=8)
     got, aux = tlm.forward(tp, {"tokens": _t(toks).long()}, tcfg, chunk=8)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-    assert float(aux) == 0.0
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-6, abs=0.0)
+    assert (float(aux) > 0) == (arch in MOE)
     _close(got, want, F32_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_caches_and_continuation_match(arch):
     """prefill logits and caches, pad_caches, then decode steps continuing
     from the prompt, each against the reference."""
@@ -383,10 +434,82 @@ def test_mrope_through_the_model_matches():
 
 
 def test_not_ported_error_names_item():
-    err = tblocks.not_ported("attn_moe")
-    assert isinstance(err, NotImplementedError) and "MoE + MLA" in str(err)
-    with pytest.raises(NotImplementedError, match="MoE \\+ MLA"):
-        tlm.param_count(tconfigs.get_smoke("moonshot-v1-16b-a3b"), active_only=True)
+    err = tblocks.not_ported("ssm")
+    assert isinstance(err, NotImplementedError) and "queue item 2, SSM" in str(err)
+    with pytest.raises(NotImplementedError, match="queue item 2, SSM"):
+        tlm.param_count(tconfigs.get_smoke("mamba2-2.7b"), active_only=True)
     with pytest.raises(ValueError, match="unknown block kind"):
         tblocks.block_params(None, tconfigs.get_smoke("phi4-mini-3.8b"), "conv",
                              dtype=torch.float32, device=torch.device("meta"))
+
+
+# ----------------------------------------------------------- MoE/MLA in bf16
+class _PinnedRouting:
+    """The reference's routing decisions, replayed in call order by the
+    port's ``route``.  In bf16 the two frameworks' hidden states part by a
+    bf16 ulp here and there, and a router near-tie can then pick another
+    expert (deepseek SMOKE: probabilities 0.1808 and 0.1756 at one token of
+    its last layer), which moves that token's logits by far more than
+    rounding; pinned, the comparison holds the arithmetic alone.  The
+    reference runs eagerly (``jax.disable_jit``) so that its scan over
+    layers calls ``route`` once a layer."""
+
+    def __init__(self, monkeypatch):
+        self.queue = deque()
+        j_route, t_route = jmoe.route, tmoe.route
+
+        def record(router_w, x, m):
+            out = j_route(router_w, x, m)
+            self.queue.append(out[:2])
+            return out
+
+        def replay(router_w, x, m):
+            top_i, top_w = self.queue.popleft()
+            _, _, probs = t_route(router_w, x, m)
+            return (_t(np.array(top_i)).long(),
+                    _t(np.array(top_w.astype(jnp.float32))).to(x.dtype), probs)
+
+        monkeypatch.setattr(jmoe, "route", record)
+        monkeypatch.setattr(tmoe, "route", replay)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_bf16_forward_and_decode_match(arch, monkeypatch):
+    """bf16 weights and activations with the router f32, the reference's
+    routing pinned: forward, then prefill and decode steps continuing it,
+    within BF16_TOL."""
+    jcfg, tcfg, jp, tp = _models(arch, dtype="bfloat16")
+    pinned = _PinnedRouting(monkeypatch)
+    toks = _tokens(tcfg)
+    with jax.disable_jit():
+        want, _ = jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg, chunk=8)
+        got, _ = tlm.forward(tp, {"tokens": _t(toks).long()}, tcfg, chunk=8)
+        _close(got, want, BF16_TOL)
+        s0 = 10
+        jl, jc = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s0])}, jcfg, chunk=4)
+        tl, tc = tlm.prefill(tp, {"tokens": _t(toks[:, :s0]).long()}, tcfg, chunk=4)
+        _close(tl, jl, BF16_TOL)
+        jc, tc = jlm.pad_caches(jc, jcfg, S), tlm.pad_caches(tc, tcfg, S)
+        for i in range(s0, S):
+            jl, jc = jlm.decode_step(jp, jnp.asarray(toks[:, i : i + 1]), jc, jnp.int32(i), jcfg)
+            tl, tc = tlm.decode_step(tp, _t(toks[:, i : i + 1]).long(), tc, i, tcfg)
+            _close(tl, jl, BF16_TOL)
+    assert not pinned.queue
+    assert tc[0][0][0].dtype == torch.bfloat16
+
+
+def test_mla_caches_are_rank4_and_pad():
+    """MLA's caches ``[L, B, S, r]``: prefill's against the reference's,
+    then padded along S only."""
+    jcfg, tcfg, jp, tp = _models("deepseek-v3-671b")
+    toks = _tokens(tcfg, s=6)
+    _, jc = jlm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg)
+    _, tc = tlm.prefill(tp, {"tokens": _t(toks).long()}, tcfg)
+    padded = tlm.pad_caches(tc, tcfg, 9)
+    m = tcfg.mla
+    for (kind, count), group, jgroup in zip(tcfg.scan_groups(), padded, jlm.pad_caches(jc, jcfg, 9)):
+        c, k = group[0]
+        assert tuple(c.shape) == (count, 2, 9, m.kv_lora_rank), kind
+        assert tuple(k.shape) == (count, 2, 9, m.qk_rope_dim), kind
+        _close(c, jgroup[0][0], F32_TOL)
+        assert not c[:, :, 6:].any() and not k[:, :, 6:].any()

@@ -172,8 +172,9 @@ def test_port_source_imports_no_jax_nor_reference(path):
 def test_port_runs_with_jax_and_reference_blocked():
     """The port imports neither ``jax`` nor anything of ``repro``: with both
     blocked in ``sys.modules`` it imports, runs one CPU shot, serves a SMOKE
-    model (one greedy generation and a 2-replica CPU ServePool), runs the
-    device scheduler at P=8 on the CPU and one simulation."""
+    model (one greedy generation and a 2-replica CPU ServePool) and the MoE
+    SMOKE models (moonshot, deepseek with MLA), runs the device scheduler at
+    P=8 on the CPU and one simulation."""
     code = textwrap.dedent(
         """
         import sys
@@ -201,6 +202,11 @@ def test_port_runs_with_jax_and_reference_blocked():
         futs = pool.submit_wave([{"tokens": np.arange(4) + k} for k in range(4)])
         assert all(len(f.result(timeout=60)["completion"]) == 2 for f in futs)
         assert sum(pool.shutdown().per_worker_tasks) == 4
+        for arch in ("moonshot-v1-16b-a3b", "deepseek-v3-671b"):
+            cfg = repro_torch.configs.get_smoke(arch)
+            params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+            out = generate(cfg, params, torch.zeros((2, 4), dtype=torch.long), 2)
+            assert out.shape == (2, 2)
         from repro_torch.core import simulator, device_sched
         state, rounds, makespan = device_sched.virtual_run(
             8, [24, 16, 8, 8, 4, 2, 1, 1], 192, 2, device="cpu")

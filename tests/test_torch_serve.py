@@ -20,6 +20,7 @@ from repro.checkpoint.store import _flatten, _path_str
 from repro.configs import get_smoke as jget_smoke
 from repro.launch import serve as jlaunch
 from repro.models import lm as jlm
+from repro.parallel.sharding import ParallelContext
 from repro.serve import engine as jengine
 from repro_torch.configs import get_smoke
 from repro_torch.launch import serve as tlaunch
@@ -34,6 +35,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "phi4-mini-3.8b"
+MOE = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
 
 
 def _f32_models(arch=ARCH):
@@ -61,12 +63,23 @@ def test_exports_are_the_references_minus_cache_sharding():
 
 
 def test_abstract_caches_match_reference_shapes():
-    cfg = get_smoke(ARCH)
+    _check_abstract_caches(ARCH)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_abstract_caches_match_reference_shapes(arch):
+    """moonshot's GQA K/V and deepseek's MLA ``c``/rope-key caches, for its
+    dense and MoE layer groups alike."""
+    _check_abstract_caches(arch)
+
+
+def _check_abstract_caches(arch):
+    cfg = get_smoke(arch)
     ours = flatten(tengine.abstract_caches(cfg, 3, 20))
     theirs = {
         "/".join(_path_str(p) for p in path): leaf
         for path, leaf in jax.tree_util.tree_flatten_with_path(
-            jengine.abstract_caches(jget_smoke(ARCH), 3, 20))[0]
+            jengine.abstract_caches(jget_smoke(arch), 3, 20))[0]
     }
     assert ours.keys() == theirs.keys()
     for k, t in ours.items():
@@ -101,9 +114,9 @@ def test_step_makers_refuse_a_mesh():
         mesh = object()
 
     cfg = get_smoke(ARCH)
-    with pytest.raises(NotImplementedError, match="queue item 7"):
+    with pytest.raises(NotImplementedError, match="queue item 6"):
         tengine.jit_decode_step(cfg, Ctx())
-    with pytest.raises(NotImplementedError, match="queue item 7"):
+    with pytest.raises(NotImplementedError, match="queue item 6"):
         tengine.jit_prefill_step(cfg, Ctx())
 
 
@@ -119,6 +132,27 @@ def test_generate_matches_reference():
     gen = tlaunch.make_replica_generate(tcfg, tp, 6)
     for row, prompt in zip(want, prompts):
         assert gen({"tokens": prompt})["completion"] == row.tolist()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_generate_matches_reference(arch):
+    """Greedy generation of moonshot and deepseek SMOKE in f32 through the
+    step makers: the same tokens as the reference's ``generate``, and the
+    jitted steps' logits within 1e-4."""
+    jcfg, tcfg, jp, tp = _f32_models(arch)
+    prompts = np.random.default_rng(6).integers(0, tcfg.vocab, (2, 7)).astype(np.int32)
+    want = np.asarray(jlaunch.generate(jcfg, jp, jnp.asarray(prompts), 5))
+    got = tlaunch.generate(tcfg, tp, torch.from_numpy(prompts).long(), 5)
+    np.testing.assert_array_equal(got.numpy(), want)
+    ctx = ParallelContext(mesh=None)  # the reference's MoE reads its axes
+    jl, jc = jengine.jit_prefill_step(jcfg, ctx, None)(jp, {"tokens": jnp.asarray(prompts)})
+    tl, tc = tengine.jit_prefill_step(tcfg)(tp, {"tokens": torch.from_numpy(prompts).long()})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
+    jc, tc = jlm.pad_caches(jc, jcfg, 8), tlm.pad_caches(tc, tcfg, 8)
+    nxt = np.asarray(jnp.argmax(jl[:, -1], -1))[:, None].astype(np.int32)
+    jl2, _ = jengine.jit_decode_step(jcfg, ctx, 2, 8)(jp, jnp.asarray(nxt), jc, jnp.int32(7))
+    tl2, _ = tengine.jit_decode_step(tcfg)(tp, torch.from_numpy(nxt).long(), tc, 7)
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), atol=1e-4, rtol=1e-4)
 
 
 def test_servepool_streams_across_waves_without_teardown():
@@ -172,6 +206,15 @@ def test_serve_launcher_runs_on_cpu(mode):
                  "--requests", "4", "--prompt-len", "6", "--new-tokens", "3", *mode])
     assert proc.returncode == 0, proc.stderr
     assert "on cpu" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_serve_launcher_runs_on_cpu(arch):
+    proc = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--device", "cpu",
+                 "--requests", "3", "--prompt-len", "5", "--new-tokens", "3",
+                 "--open-arrival", "--rate", "40", "--replicas", "2"])
+    assert proc.returncode == 0, proc.stderr
+    assert "on cpu" in proc.stdout and "requests/replica" in proc.stdout
 
 
 def test_serve_launcher_defaults_to_cuda():

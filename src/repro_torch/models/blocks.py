@@ -3,15 +3,19 @@
 Block kinds ported so far
 -------------------------
   attn        GQA self-attention (+ gated MLP)        dense transformers
+  local       sliding-window GQA (+ gated MLP)        recurrentgemma
   attn_dense  attention (GQA or MLA) + dense MLP      MoE models, first-k layers
   attn_moe    attention (GQA or MLA) + MoE            MoE models
+  ssm         Mamba-2 SSD mixer (no MLP)              mamba2
+  rglru       RG-LRU recurrence + gated MLP           recurrentgemma
 
-Every other kind of the reference (``local``, ``ssm``, ``rglru``, ``enc``,
-``xdec``) raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports it.
+The reference's other kinds (``enc``, ``xdec``) raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 
 Every apply returns ``(x, aux_loss, cache)`` so the layer loops in ``lm.py``
-stay uniform; decode returns ``(x, cache)``.
+stay uniform; decode returns ``(x, cache)`` and updates ``cache`` in place.
+A ``local`` block's cache is a ring of ``cfg.window`` slots: prefill
+re-indexes its last ``window`` positions into the slots decode writes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from repro_torch.roadmap import not_ported
 
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import _act, dense, mrope, param, rms_norm, rope
 
@@ -34,8 +40,8 @@ __all__ = [
     "not_ported",
 ]
 
-_PORTED = ("attn", "attn_dense", "attn_moe")
-_NOT_YET = ("local", "ssm", "rglru", "enc", "xdec")
+_PORTED = ("attn", "local", "attn_dense", "attn_moe", "ssm", "rglru")
+_NOT_YET = ("enc", "xdec")
 
 
 # ------------------------------------------------------------------ MLP bits
@@ -83,11 +89,15 @@ def block_params(generator, cfg: ModelConfig, kind: str, *, layers: int = 0,
     ``layers`` > 0 (the reference's scan-over-layers layout)."""
     _check(kind)
     kw = dict(layers=layers, dtype=dtype, device=device)
-    p = {
-        "norm1": param(generator, (cfg.d_model,), init="zeros", **kw),
-        "attn": _attn_params(generator, cfg, **kw),
-        "norm2": param(generator, (cfg.d_model,), init="zeros", **kw),
-    }
+    p = {"norm1": param(generator, (cfg.d_model,), init="zeros", **kw)}
+    if kind == "ssm":  # the mixer alone: no MLP, no norm2
+        p["ssm"] = ssm_mod.ssm_params(generator, cfg, **kw)
+        return p
+    if kind == "rglru":
+        p["rec"] = rglru_mod.rglru_params(generator, cfg, **kw)
+    else:
+        p["attn"] = _attn_params(generator, cfg, **kw)
+    p["norm2"] = param(generator, (cfg.d_model,), init="zeros", **kw)
     if kind == "attn_moe":
         p["moe"] = moe_mod.moe_params(generator, cfg, **kw)
     else:
@@ -112,11 +122,23 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
     """Returns (x, aux_loss, cache); the aux loss is the MoE load-balance
     loss of an ``attn_moe`` block and 0 otherwise."""
     _check(kind)
-    # As in the reference, only an "attn" block attends within cfg.window.
-    y, cache = _self_attn(
-        p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, aux,
-        window=cfg.window if kind == "attn" else 0, want_cache=want_cache,
-    )
+    xn = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "ssm":
+        out = ssm_mod.ssm_apply(p["ssm"], xn, cfg, return_cache=want_cache)
+        y, cache = out if want_cache else (out, None)
+        return x + y, 0.0, cache
+    if kind == "rglru":
+        out = rglru_mod.rglru_apply(p["rec"], xn, cfg, return_cache=want_cache)
+        y, cache = out if want_cache else (out, None)
+    else:
+        # As in the reference, "local" blocks, and "attn" blocks when
+        # cfg.window is set, attend within cfg.window.
+        y, cache = _self_attn(
+            p["attn"], xn, cfg, aux,
+            window=cfg.window if kind in ("attn", "local") else 0, want_cache=want_cache,
+        )
+        if want_cache and kind == "local":
+            cache = _ring_from_full(cache, cfg.window)
     x = x + y
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
@@ -126,18 +148,41 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
     return x + _mlp_apply(p["mlp"], xn, cfg), 0.0, cache
 
 
+def _ring_from_full(kv, window: int):
+    """Re-index the last ``window`` positions of prefill's K/V
+    ``[B, S, Hkv, hd]`` into the ring's slots (position t in slot
+    t mod window); slots no position reached stay zero."""
+    k, v = kv
+    p0 = k.shape[1]
+    w = min(window, p0)
+    idx = torch.arange(p0 - w, p0, device=k.device) % window
+    ring = []
+    for t in (k, v):
+        r = t.new_zeros((t.shape[0], window, *t.shape[2:]))
+        r[:, idx] = t[:, -w:]
+        ring.append(r)
+    return tuple(ring)
+
+
 # -------------------------------------------------------------------- decode
 def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
     """Single-token step.  Returns (x, cache'); ``cache`` is updated in place."""
     _check(kind)
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if cfg.mla is not None:
+    if kind == "ssm":
+        y, cache = ssm_mod.ssm_decode(p["ssm"], xn, cfg, cache)
+        return x + y, cache
+    if kind == "rglru":
+        y, cache = rglru_mod.rglru_decode(p["rec"], xn, cfg, cache)
+    elif cfg.mla is not None:
         y, cache = attn_mod.mla_decode(p["attn"], xn, cfg, cache, pos)
     else:
-        # As in the reference, only "local" blocks decode against a window:
-        # an "attn" block with cfg.window attends its whole cache here.
+        # As in the reference, only "local" blocks decode against a window
+        # (their ring): an "attn" block with cfg.window attends its whole
+        # cache here.
         rope_fn = make_rope_fn(cfg, aux["positions"])
-        y, cache = attn_mod.gqa_decode(p["attn"], xn, cfg, rope_fn, cache, pos, window=0)
+        y, cache = attn_mod.gqa_decode(p["attn"], xn, cfg, rope_fn, cache, pos,
+                                       window=cfg.window if kind == "local" else 0)
     x = x + y
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
@@ -149,13 +194,21 @@ def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
 # --------------------------------------------------------------------- cache
 def block_init_cache(cfg: ModelConfig, kind: str, bsz: int, cache_len: int, dtype,
                      *, layers: int, device):
-    """Zero caches: K/V ``[layers, B, cache_len, Hkv, hd]``, or for MLA the
-    compressed ``c`` ``[layers, B, cache_len, kv_lora_rank]`` and the rope
-    key ``[layers, B, cache_len, qk_rope_dim]``."""
+    """Zero caches, stacked ``[layers, ...]``: K/V ``[B, cache_len, Hkv, hd]``
+    (a ``local`` block's ring always ``cfg.window`` long, as the
+    reference's), for MLA the compressed ``c`` ``[B, cache_len,
+    kv_lora_rank]`` and the rope key ``[B, cache_len, qk_rope_dim]``; SSM
+    and RG-LRU blocks their fixed-size states (:func:`ssm.ssm_init_cache`,
+    :func:`rglru.rglru_init_cache`)."""
     _check(kind)
+    if kind == "ssm":
+        return ssm_mod.ssm_init_cache(cfg, bsz, dtype, layers=layers, device=device)
+    if kind == "rglru":
+        return rglru_mod.rglru_init_cache(cfg, bsz, dtype, layers=layers, device=device)
     if cfg.mla is not None:
         m = cfg.mla
         shapes = [(layers, bsz, cache_len, r) for r in (m.kv_lora_rank, m.qk_rope_dim)]
     else:
-        shapes = [(layers, bsz, cache_len, cfg.n_kv_heads, cfg.head_dim_)] * 2
+        slen = (cfg.window or cache_len) if kind == "local" else cache_len
+        shapes = [(layers, bsz, slen, cfg.n_kv_heads, cfg.head_dim_)] * 2
     return tuple(torch.zeros(s, dtype=dtype, device=device) for s in shapes)

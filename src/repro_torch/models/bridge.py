@@ -22,8 +22,10 @@ from repro_torch.device import resolve_device
 __all__ = ["params_from_flat", "flatten"]
 
 # Leaves the reference stores in f32 whatever the model's dtype: the MoE
-# router (``repro/models/moe.py``, ``moe_params``).
-_F32_LEAVES = frozenset({"router"})
+# router (``repro/models/moe.py``, ``moe_params``), the SSM's ``a_log`` and
+# ``dt_bias`` (``ssm.py``, ``ssm_params``) and the RG-LRU's ``lam``
+# (``rglru.py``, ``rglru_params``).
+_F32_LEAVES = frozenset({"router", "a_log", "dt_bias", "lam"})
 
 
 def params_from_flat(
@@ -34,8 +36,9 @@ def params_from_flat(
 ) -> dict[str, Any]:
     """Nested params from ``{"a/0/b": array}``: numeric path parts index
     lists, the others dict keys.  Floating leaves are cast to ``dtype``,
-    except those the reference keeps in f32 (the MoE router), which stay
-    f32 so that routing reads the same logits."""
+    except those the reference keeps in f32 (``_F32_LEAVES``), which stay
+    f32 (so that routing reads the same logits, and the recurrences the
+    same decay rates)."""
     dev = resolve_device(device)
     root: dict = {}
     for key, arr in flat.items():

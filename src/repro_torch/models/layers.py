@@ -48,14 +48,17 @@ def param(
     it in ``dtype``: std is 1/sqrt(fan-in) (``shape[0]``) or the number
     given; ``init="zeros"`` gives zeros.  The draw goes in pieces of at most
     one layer and ``_DRAW_CHUNK`` elements, each widened to f32 only while
-    it is drawn (a stack of moonshot's experts is 8.9 G elements).  On the
-    ``meta`` device nothing is drawn (shapes only).  torch's generator never
-    reproduces ``jax.random``'s bits: parity with the reference goes through
+    it is drawn (a stack of moonshot's experts is 8.9 G elements).
+    ``init="ones"`` gives ones.  On the ``meta`` device nothing is drawn
+    (shapes only).  torch's generator never reproduces ``jax.random``'s
+    bits: parity with the reference goes through
     ``repro_torch.models.bridge``.
     """
     full = (layers, *shape) if layers else tuple(shape)
     if device.type == "meta" or init == "zeros":
         return torch.zeros(full, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(full, dtype=dtype, device=device)
     if scale == "fan_in":
         std = 1.0 / math.sqrt(shape[0] if len(shape) > 1 else 1.0)
     else:

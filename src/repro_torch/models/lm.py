@@ -4,8 +4,9 @@ The layer stack is grouped into runs of identical block kinds (see
 ``ModelConfig.scan_groups``).  As in the reference, each run's parameters
 are stacked ``[L, ...]``, and so are its caches (a list of groups, a tuple
 per block kind, leaves ``[L, B, S, Hkv, hd]``, or ``[L, B, S, r]`` for
-MLA's compressed cache); the reference's ``lax.scan`` over a run becomes a
-Python loop over views of the stack.
+MLA's compressed cache, or an SSM or RG-LRU block's fixed-size state); the
+reference's ``lax.scan`` over a run, a ``cycle:`` group's included, becomes
+a Python loop over views of the stack.
 
 Public entry points (functions over plain nested dicts of tensors):
   init(cfg, generator)          -> params
@@ -14,9 +15,10 @@ Public entry points (functions over plain nested dicts of tensors):
   decode_step(params, tok, caches, pos, cfg) -> (logits, caches)
   init_caches / pad_caches / param_count
 
-``decode_step`` writes each new K/V row into ``caches`` in place; the caller
-owns them (one set per request).  ``init`` builds the multi-token-prediction
-module's parameters (``tree["mtp"]``, DeepSeek-V3); ``loss_fn`` and the MTP
+``decode_step`` writes each new K/V row, and each new recurrent state, into
+``caches`` in place; the caller owns them (one set per request).  ``init``
+builds the multi-token-prediction module's parameters (``tree["mtp"]``,
+DeepSeek-V3); ``loss_fn`` and the MTP
 forward come with the port's training slice.  Encoder-decoder and
 vision-frontend models raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item.
@@ -47,6 +49,10 @@ __all__ = [
     "pad_caches",
     "param_count",
 ]
+
+
+# Block kinds whose cache grows with the sequence (see pad_caches).
+_GROWS = ("attn", "attn_dense", "attn_moe")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -234,12 +240,14 @@ def prefill(params, batch, cfg: ModelConfig, chunk: int = 1024):
 def pad_caches(caches, cfg: ModelConfig, cache_len: int):
     """Grow prefill caches to ``cache_len`` along the sequence so decoding
     can continue (zeros after the prompt): GQA's ``[L, B, S, Hkv, hd]`` and
-    MLA's ``[L, B, S, r]`` alike."""
+    MLA's ``[L, B, S, r]`` alike.  A ``local`` block's ring and the SSM and
+    RG-LRU states have a fixed size and stay as they are, as in the
+    reference."""
     out = []
     for cache, (kind, _count) in zip(caches, _decoder_groups(cfg)):
         out.append(tuple(
-            tuple(_pad_seq(x, cache_len) for x in cache[i])
-            for i, _k in enumerate(_group_kinds(kind))
+            tuple(_pad_seq(x, cache_len) for x in cache[i]) if k in _GROWS else cache[i]
+            for i, k in enumerate(_group_kinds(kind))
         ))
     return out
 

@@ -1,0 +1,209 @@
+"""Mamba-2 (SSD, state-space duality) mixing layer, as in
+``repro/models/ssm.py``.
+
+Chunked SSD for train/prefill: the sequence is split into chunks of Q
+tokens; within a chunk the quadratic "attention-like" form runs directly,
+and across chunks a linear recurrence carries the [H, P, N] state (the
+reference's ``lax.scan`` over chunks, here a loop).  It equals the token-by-
+token recurrence (``ssd_naive``); decode keeps the state, O(1) per token.
+
+Every dtype change is the reference's, in its order: the input projection,
+the causal conv and its SiLU run in the activation dtype (the decode conv
+sums its window in f32 and rounds once, as ``jnp.sum`` does); ``dt`` is a
+softplus in f32; x, B and C are widened to f32 for the scan, whose state
+stays f32; the output is rounded to the activation dtype *before* the gated
+norm, which computes in f32 and rounds back; the output projection runs in
+the activation dtype.  ``a_log`` and ``dt_bias`` are stored in f32.  Heads
+share their group's B and C by a view over ``[groups, heads per group]``,
+the reference's ``jnp.repeat`` without the copy.  The reference reaches no
+Pallas kernel here; these are plain PyTorch ops.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig, SSMConfig
+from .layers import param
+
+__all__ = [
+    "ssm_params",
+    "ssm_apply",
+    "ssm_decode",
+    "ssd_naive",
+    "ssm_init_cache",
+]
+
+
+def _dims(cfg: ModelConfig):
+    """(d_in, heads, groups, state size, head dim, conv channels)."""
+    s: SSMConfig = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return d_in, d_in // s.head_dim, s.n_groups, s.d_state, s.head_dim, \
+        d_in + 2 * s.n_groups * s.d_state
+
+
+def _f32_leaf(values: torch.Tensor, layers: int, device) -> torch.Tensor:
+    """A fixed f32 leaf (not drawn), stacked ``[layers, ...]`` when
+    ``layers`` > 0."""
+    values = values.to(device=device, dtype=torch.float32)
+    return values.expand(layers, *values.shape).clone() if layers else values
+
+
+def ssm_params(generator, cfg: ModelConfig, *, layers: int = 0, dtype, device) -> dict:
+    s: SSMConfig = cfg.ssm
+    d = cfg.d_model
+    d_in, h, g, n, _, conv_ch = _dims(cfg)
+    kw = dict(layers=layers, dtype=dtype, device=device)
+    # dt drawn log-uniform in [dt_min, dt_max] from numpy's seed 0, as the
+    # reference draws it, and stored as its inverse softplus.
+    dt = np.exp(np.random.RandomState(0).uniform(np.log(s.dt_min), np.log(s.dt_max), size=(h,)))
+    dt_bias = dt + np.log(-np.expm1(-dt))
+    return {
+        # packed: [z (d_in), x (d_in), B (g*n), C (g*n), dt (h)]
+        "in_proj": param(generator, (d, 2 * d_in + 2 * g * n + h), **kw),
+        "conv_w": param(generator, (s.d_conv, conv_ch), scale=0.5, **kw),
+        "conv_b": param(generator, (conv_ch,), init="zeros", **kw),
+        "a_log": _f32_leaf(torch.log(torch.arange(1, h + 1, dtype=torch.float32)), layers, device),
+        "dt_bias": _f32_leaf(torch.from_numpy(dt_bias), layers, device),
+        "d_skip": param(generator, (h,), init="ones", **kw),
+        "norm": param(generator, (d_in,), init="zeros", **kw),
+        "out_proj": param(generator, (d_in, d), **kw),
+    }
+
+
+def _conv1d(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv along S.  u [B, S, C], w [K, C]; the taps are
+    added one at a time in u's dtype, as the reference's ``sum`` does."""
+    k, s = w.shape[0], u.shape[1]
+    up = F.pad(u, (0, 0, k - 1, 0))
+    out = up[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + up[:, i : i + s] * w[i]
+    return out + b
+
+
+def _split_proj(zxbcdt, d_in, g, n, h):
+    z = zxbcdt[..., :d_in]
+    x = zxbcdt[..., d_in : 2 * d_in]
+    b = zxbcdt[..., 2 * d_in : 2 * d_in + g * n]
+    c = zxbcdt[..., 2 * d_in + g * n : 2 * d_in + 2 * g * n]
+    dt = zxbcdt[..., 2 * d_in + 2 * g * n :]
+    return z, x, b, c, dt
+
+
+def _gated_norm(y, z, gamma, eps):
+    dt = y.dtype
+    y = y.float() * F.silu(z.float())
+    var = (y * y).mean(-1, keepdim=True)
+    return (y * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(dt)
+
+
+def ssm_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
+    """Chunked SSD over the full sequence.  xin [B, S, d]; S a multiple of
+    the chunk.  With ``return_cache`` also the decode cache: the f32 state
+    after the last token and the last ``d_conv - 1`` pre-conv rows."""
+    s: SSMConfig = cfg.ssm
+    bsz, slen, _ = xin.shape
+    d_in, h, g, n, pdim, conv_ch = _dims(cfg)
+    q = s.chunk
+    assert slen % q == 0, (slen, q)
+    nc, hpg = slen // q, h // g
+
+    zxbcdt = xin @ p["in_proj"]
+    z, _, _, _, dt = _split_proj(zxbcdt, d_in, g, n, h)
+    xbc_pre = zxbcdt[..., d_in : d_in + conv_ch]  # [x, B, C] as packed: the cache tail
+    xbc = F.silu(_conv1d(xbc_pre, p["conv_w"], p["conv_b"]))
+    x, bmat, cmat = xbc[..., :d_in], xbc[..., d_in : d_in + g * n], xbc[..., d_in + g * n :]
+    dt = F.softplus(dt.float() + p["dt_bias"])  # [B, S, H]
+    a = -torch.exp(p["a_log"])  # [H]
+
+    xh = x.reshape(bsz, nc, q, g, hpg, pdim).float()
+    bh = bmat.reshape(bsz, nc, q, g, n).float()
+    ch = cmat.reshape(bsz, nc, q, g, n).float()
+    dtc = dt.reshape(bsz, nc, q, h)
+
+    cum = torch.cumsum(dtc * a, dim=2)  # [B, NC, Q, H]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, NC, Q(t), Q(s), H]
+    tri = torch.ones(q, q, dtype=torch.bool, device=xin.device).tril()
+    ldecay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+
+    cb = torch.einsum("bcqgn,bcsgn->bcqsg", ch, bh)  # [B, NC, Q, Q, G]
+    m = cb[..., None] * ldecay.reshape(bsz, nc, q, q, g, hpg) * \
+        dtc.reshape(bsz, nc, 1, q, g, hpg)  # weight on x_s
+    y_intra = torch.einsum("bcqsgj,bcsgjp->bcqgjp", m, xh)
+
+    # chunk summary state: sum_s exp(cum_end - cum_s) dt_s B_s x_s^T
+    wgt = (torch.exp(cum[:, :, -1:, :] - cum) * dtc).reshape(bsz, nc, q, g, hpg)
+    bx = torch.einsum("bcsgn,bcsgjp->bcgjpn", bh, xh * wgt[..., None])
+    chunk_decay = torch.exp(cum[:, :, -1, :]).reshape(bsz, nc, g, hpg)
+
+    hstate = torch.zeros(bsz, g, hpg, pdim, n, dtype=torch.float32, device=xin.device)
+    h_prev = []  # the state BEFORE each chunk
+    for c in range(nc):
+        h_prev.append(hstate)
+        hstate = hstate * chunk_decay[:, c, :, :, None, None] + bx[:, c]
+    h_prev = torch.stack(h_prev, 1)  # [B, NC, G, J, P, N]
+
+    y_inter = torch.einsum("bcqgn,bcgjpn->bcqgjp", ch, h_prev) * \
+        torch.exp(cum).reshape(bsz, nc, q, g, hpg)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, slen, h, pdim)
+    y = y + xh.reshape(bsz, slen, h, pdim) * p["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, slen, d_in).to(xin.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_cache:
+        conv_tail = xbc_pre[:, -(s.d_conv - 1) :, :]
+        return out, (hstate.reshape(bsz, h, pdim, n), conv_tail.to(xin.dtype))
+    return out
+
+
+def ssd_naive(p: dict, xin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token-by-token recurrence oracle (slow; tests only)."""
+    cache = ssm_init_cache(cfg, xin.shape[0], dtype=xin.dtype, device=xin.device)
+    outs = [ssm_decode(p, xin[:, t : t + 1], cfg, cache)[0] for t in range(xin.shape[1])]
+    return torch.cat(outs, dim=1)
+
+
+def ssm_init_cache(cfg: ModelConfig, bsz: int, dtype=torch.bfloat16, *, layers: int = 0,
+                   device):
+    """Zero cache ``(state f32 [B, H, P, N], conv tail [B, d_conv - 1, C])``,
+    stacked ``[layers, ...]`` when ``layers`` > 0."""
+    s: SSMConfig = cfg.ssm
+    _, h, _, n, pdim, conv_ch = _dims(cfg)
+    lead = (layers,) if layers else ()
+    return (
+        torch.zeros((*lead, bsz, h, pdim, n), dtype=torch.float32, device=device),
+        torch.zeros((*lead, bsz, s.d_conv - 1, conv_ch), dtype=dtype, device=device),
+    )
+
+
+def ssm_decode(p: dict, xin: torch.Tensor, cfg: ModelConfig, cache):
+    """One-token step.  xin [B, 1, d]; cache = (state, conv_tail), both
+    updated in place (the reference returns new ones) and returned."""
+    bsz = xin.shape[0]
+    d_in, h, g, n, pdim, conv_ch = _dims(cfg)
+    state, conv_tail = cache
+
+    zxbcdt = xin @ p["in_proj"]
+    z, _, _, _, dt = _split_proj(zxbcdt, d_in, g, n, h)
+    window = torch.cat([conv_tail, zxbcdt[..., d_in : d_in + conv_ch]], dim=1)  # [B, K, C]
+    xbc = F.silu((window * p["conv_w"]).sum(1, keepdim=True) + p["conv_b"])
+    x, bmat, cmat = xbc[..., :d_in], xbc[..., d_in : d_in + g * n], xbc[..., d_in + g * n :]
+    dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]  # [B, H]
+    dec = torch.exp(dt * -torch.exp(p["a_log"]))
+    xh = x.reshape(bsz, h, pdim).float()
+    bh = bmat.reshape(bsz, g, 1, 1, n).float()
+    ch = cmat.reshape(bsz, g, 1, n, 1).float()
+    new = (state * dec[:, :, None, None]).view(bsz, g, h // g, pdim, n) + \
+        (xh * dt[:, :, None]).view(bsz, g, h // g, pdim, 1) * bh
+    y = (new @ ch).view(bsz, h, pdim)
+    y = y + xh * p["d_skip"][None, :, None]
+    y = y.reshape(bsz, 1, d_in).to(xin.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    state.copy_(new.view(bsz, h, pdim, n))
+    conv_tail.copy_(window[:, 1:])
+    return out, (state, conv_tail)

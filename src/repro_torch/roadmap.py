@@ -7,9 +7,6 @@ from __future__ import annotations
 __all__ = ["not_ported"]
 
 _ROADMAP_ITEM = {
-    "ssm": "queue item 2, SSM",
-    "rglru": "queue item 3, RG-LRU with local attention",
-    "local": "queue item 3, RG-LRU with local attention",
     "enc": "queue item 4, encoder-decoder",
     "xdec": "queue item 4, encoder-decoder",
     "frontend": "queue item 5, VLM",

@@ -1,7 +1,7 @@
 """The port on the card: its CUDA kernel against its plain PyTorch version,
-the serving path's SMOKE models (dense, MoE, MLA) against the same models on
-the CPU, and the device scheduler's run on the card against its run on the
-CPU.
+the serving path's SMOKE models (dense, MoE, MLA, Mamba-2, RG-LRU with local
+attention) against the same models on the CPU, and the device scheduler's
+run on the card against its run on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
 ``torch.cuda.is_available()`` is false; the decision is taken inside the
@@ -175,6 +175,55 @@ def test_moe_smoke_model_on_card_matches_cpu(cuda, arch, dtype, monkeypatch):
         gl, gc = lm.decode_step(card, toks[:, i : i + 1].to(cuda), gc, i, cfg)
         close(gl, wl)
     assert not decisions
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_recurrent_smoke_model_on_card_matches_cpu(cuda, arch, dtype):
+    """The recurrent SMOKE models, the same weights on the card and on the
+    CPU: forward over 48 tokens (whole SSM chunks), prefill (past
+    recurrentgemma's window of 32, so its ring wraps) and the decode steps
+    continuing it.  f32 within 1e-4; bf16 within 0.02
+    (``tests/test_torch_models.py``'s BF16_TOL)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke(arch).with_(dtype=str(dtype).removeprefix("torch."))
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=dtype)
+    card = _to(cpu, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 0.02
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol)
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 48)))
+    want, _ = lm.forward(cpu, {"tokens": toks}, cfg)
+    got, _ = lm.forward(card, {"tokens": toks.to(cuda)}, cfg)
+    close(got, want)
+    s0 = 32 if cfg.ssm is not None else 36
+    wl, wc = lm.prefill(cpu, {"tokens": toks[:, :s0]}, cfg)
+    gl, gc = lm.prefill(card, {"tokens": toks[:, :s0].to(cuda)}, cfg)
+    close(gl, wl)
+    wc, gc = lm.pad_caches(wc, cfg, s0 + 4), lm.pad_caches(gc, cfg, s0 + 4)
+    for i in range(s0, s0 + 4):
+        wl, wc = lm.decode_step(cpu, toks[:, i : i + 1], wc, i, cfg)
+        gl, gc = lm.decode_step(card, toks[:, i : i + 1].to(cuda), gc, i, cfg)
+        close(gl, wl)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_recurrent_servepool_on_card_repeats(cuda, arch):
+    """Two replicas of a recurrent SMOKE model in bf16 on their own
+    streams: every pooled completion equals the request generated alone."""
+    cfg = get_smoke(arch)
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    torch.cuda.synchronize()
+    alone = make_replica_generate(cfg, params, 4)
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (6, 9))
+    want = [alone({"tokens": p})["completion"] for p in prompts]
+    pool = ServePool([Replica(f"r{i}", make_replica_generate(cfg, params, 4),
+                              slow_factor=1.0 + 3 * i) for i in range(2)])
+    futs = pool.submit_wave([{"tokens": p} for p in prompts])
+    assert [f.result(timeout=120)["completion"] for f in futs] == want
+    assert sum(pool.shutdown().per_worker_tasks) == 6
 
 
 def test_moe_servepool_on_card_repeats(cuda):

@@ -1,6 +1,6 @@
 """The port's model stack (``repro_torch.models``, ``repro_torch.configs``):
-the dense family and the MoE/MLA family, against the JAX reference on the
-CPU.
+the dense family, the MoE/MLA family and the recurrent families (Mamba-2
+SSD; RG-LRU with local attention), against the JAX reference on the CPU.
 
 Inputs are made with numpy from a seed; parameters come from
 ``repro.models.lm.init`` and cross through ``repro_torch.models.bridge`` in
@@ -40,6 +40,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 DENSE = ["phi4-mini-3.8b", "minitron-4b", "mistral-nemo-12b", "qwen1.5-32b"]
 MOE = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+RECURRENT = ["mamba2-2.7b", "recurrentgemma-2b"]
 S = 16  # sequence length of the model comparisons
 F32_TOL = 1e-4  # logits, f32: summation order of CPU matmuls differs
 BF16_TOL = 0.02  # logits, bf16: a few bf16 ulps (2^-8 at 0.5); observed max 0.0056
@@ -115,7 +116,7 @@ def test_registry_matches():
     assert set(tconfigs.__all__) == set(jconfigs.__all__) - {"input_specs"}
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_param_count_matches(arch):
     full = jconfigs.get_config(arch)
     assert tlm.param_count(tconfigs.get_config(arch)) == jlm.param_count(full)
@@ -135,6 +136,14 @@ def test_moe_full_counts():
     ds4 = tconfigs.get_config("deepseek-v3-671b").with_(n_layers=4, mtp=False)
     assert ds4.param_count() == 15_111_101_440 == jlm.param_count(
         jconfigs.get_config("deepseek-v3-671b").with_(n_layers=4, mtp=False))
+
+
+def test_recurrent_full_counts():
+    """At full width and depth, on the ``meta`` device: mamba2-2.7b
+    2,702,599,680 parameters (5.41 GB in bf16), recurrentgemma-2b
+    2,894,574,080 (5.79 GB)."""
+    assert tconfigs.get_config("mamba2-2.7b").param_count() == 2_702_599_680
+    assert tconfigs.get_config("recurrentgemma-2b").param_count() == 2_894_574_080
 
 
 def test_phi4_full_width_count():
@@ -196,8 +205,7 @@ def test_init_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-2.7b",
-                                  "seamless-m4t-medium", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
 def test_other_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, queue item"):
         tlm.init(tconfigs.get_smoke(arch), torch.Generator(), device="cpu")
@@ -434,13 +442,105 @@ def test_mrope_through_the_model_matches():
 
 
 def test_not_ported_error_names_item():
-    err = tblocks.not_ported("ssm")
-    assert isinstance(err, NotImplementedError) and "queue item 2, SSM" in str(err)
-    with pytest.raises(NotImplementedError, match="queue item 2, SSM"):
-        tlm.param_count(tconfigs.get_smoke("mamba2-2.7b"), active_only=True)
+    err = tblocks.not_ported("enc")
+    assert isinstance(err, NotImplementedError) and "queue item 4, encoder-decoder" in str(err)
+    with pytest.raises(NotImplementedError, match="queue item 4, encoder-decoder"):
+        tlm.param_count(tconfigs.get_smoke("seamless-m4t-medium"), active_only=True)
     with pytest.raises(ValueError, match="unknown block kind"):
         tblocks.block_params(None, tconfigs.get_smoke("phi4-mini-3.8b"), "conv",
                              dtype=torch.float32, device=torch.device("meta"))
+
+
+# ------------------------------------------------------- recurrent families
+# Prefill lengths: whole SSM chunks of 8, and past recurrentgemma SMOKE's
+# window of 32, so that its prefill wraps the local blocks' ring.
+S0 = {"mamba2-2.7b": 32, "recurrentgemma-2b": 36}
+S_REC = 40
+
+
+def _recurrent_models(arch, dtype="float32"):
+    """``_models`` with the SSM's chunk at 8, as the reference's tests run it."""
+    jcfg, tcfg, jp, tp = _models(arch, dtype)
+    if tcfg.ssm is not None:
+        jcfg = jcfg.with_(ssm=dataclasses.replace(jcfg.ssm, chunk=8))
+        tcfg = tcfg.with_(ssm=dataclasses.replace(tcfg.ssm, chunk=8))
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_init_tree_matches_reference_layout(arch):
+    """The reference's paths, shapes and dtypes: ``a_log``, ``dt_bias`` and
+    ``lam`` in f32, the rest in bf16; an ``ssm`` block has no norm2 and no
+    MLP."""
+    cfg = tconfigs.get_smoke(arch)
+    ours = flatten(tlm.init(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    jp = jlm.init(jconfigs.get_smoke(arch), jax.random.key(0))[0]
+    theirs, dtypes = _flatten(jp), _ref_dtypes(jp)
+    assert ours.keys() == theirs.keys()
+    f32 = {k for k in ours if k.split("/")[-1] in ("a_log", "dt_bias", "lam")}
+    assert f32
+    for k, t in ours.items():
+        assert tuple(t.shape) == theirs[k].shape, k
+        assert str(t.dtype).removeprefix("torch.") == str(dtypes[k]), k
+        assert (t.dtype == torch.float32) == (k in f32), k
+        if "norm" in k:
+            assert not t.any(), k
+    if arch == "mamba2-2.7b":  # an ssm block is norm1 and the mixer alone
+        assert {k.split("/")[3] for k in ours if k.startswith("groups/")} == {"norm1", "ssm"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_forward_prefill_decode_match(arch, dtype):
+    """forward over 40 tokens; prefill of S0 tokens, its caches (f32), and
+    pad_caches, which leaves the ring and the recurrent states as they are;
+    then decode steps continuing the prompt; each against the reference, at
+    F32_TOL or BF16_TOL.  In f32 the decode steps also reproduce forward
+    (the reference's own 2e-3)."""
+    jcfg, tcfg, jp, tp = _recurrent_models(arch, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    toks = _tokens(tcfg, s=S_REC)
+    want, _ = jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)
+    full, aux = tlm.forward(tp, {"tokens": _t(toks).long()}, tcfg)
+    assert full.dtype == torch.float32 and float(aux) == 0.0
+    _close(full, want, tol)
+    s0 = S0[arch]
+    jl, jc = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s0])}, jcfg)
+    tl, tc = tlm.prefill(tp, {"tokens": _t(toks[:, :s0]).long()}, tcfg)
+    _close(tl, jl, tol)
+    if dtype == "float32":
+        _close_trees(tc, jc, F32_TOL)
+    padded = tlm.pad_caches(tc, tcfg, S_REC)
+    assert all(a is b for a, b in zip(flatten(padded).values(), flatten(tc).values()))
+    jc = jlm.pad_caches(jc, jcfg, S_REC)
+    jstep = jax.jit(lambda p, t, c, i: jlm.decode_step(p, t, c, i, jcfg))
+    for i in range(s0, S_REC):
+        jl, jc = jstep(jp, jnp.asarray(toks[:, i : i + 1]), jc, jnp.int32(i))
+        tl, tc = tlm.decode_step(tp, _t(toks[:, i : i + 1]).long(), tc, i, tcfg)
+        _close(tl, jl, tol)
+        if dtype == "float32":
+            torch.testing.assert_close(tl, full[:, i : i + 1], atol=2e-3, rtol=2e-3)
+    if dtype == "float32":
+        _close_trees(tc, jc, F32_TOL)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_from_empty_matches_forward(arch):
+    """Every token through decode_step from zero caches reproduces forward
+    (the reference's serving contract, atol = rtol = 2e-3), and the
+    reference's decode within F32_TOL."""
+    jcfg, tcfg, jp, tp = _recurrent_models(arch)
+    toks = _tokens(tcfg, s=24)
+    full, _ = tlm.forward(tp, {"tokens": _t(toks).long()}, tcfg)
+    caches = tlm.init_caches(tcfg, 2, 24, device="cpu")
+    jc = jlm.init_caches(jcfg, 2, 24)
+    jstep = jax.jit(lambda p, t, c, i: jlm.decode_step(p, t, c, i, jcfg))
+    outs = []
+    for i in range(24):
+        jl, jc = jstep(jp, jnp.asarray(toks[:, i : i + 1]), jc, jnp.int32(i))
+        outs.append(tlm.decode_step(tp, _t(toks[:, i : i + 1]).long(), caches, i, tcfg)[0])
+        _close(outs[-1], jl, F32_TOL)
+    torch.testing.assert_close(torch.cat(outs, 1), full, atol=2e-3, rtol=2e-3)
 
 
 # ----------------------------------------------------------- MoE/MLA in bf16

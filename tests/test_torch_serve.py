@@ -36,6 +36,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "phi4-mini-3.8b"
 MOE = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+RECURRENT = ["mamba2-2.7b", "recurrentgemma-2b"]
 
 
 def _f32_models(arch=ARCH):
@@ -73,18 +74,48 @@ def test_moe_abstract_caches_match_reference_shapes(arch):
     _check_abstract_caches(arch)
 
 
-def _check_abstract_caches(arch):
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_abstract_caches_match_reference_shapes(arch):
+    """The reference's shapes and dtypes: a ``local`` block's ring is
+    window-sized whatever the cache length, the SSM state is f32
+    ``[L, B, H, P, N]``, the RG-LRU state f32 ``[L, B, W]``, and the conv
+    tails are in the activation dtype (bf16)."""
+    ours = _check_abstract_caches(arch, cache_len=50)
     cfg = get_smoke(arch)
-    ours = flatten(tengine.abstract_caches(cfg, 3, 20))
+    for k, t in ours.items():  # k: "group/block-in-group/leaf"
+        if arch == "mamba2-2.7b":
+            s = cfg.ssm
+            h = s.expand * cfg.d_model // s.head_dim
+            state = (cfg.n_layers, 3, h, s.head_dim, s.d_state)
+            conv = (cfg.n_layers, 3, s.d_conv - 1, s.expand * cfg.d_model + 2 * s.d_state)
+        else:
+            count = t.shape[0]
+            ring = (count, 3, cfg.window, cfg.n_kv_heads, cfg.head_dim_)
+            state = (count, 3, cfg.rglru.lru_width)
+            conv = (count, 3, cfg.rglru.d_conv - 1, cfg.rglru.lru_width)
+            if k.startswith("0/2/"):  # the cycle's local block
+                assert tuple(t.shape) == ring and cfg.window < 50, k
+                continue
+        want = {"0": (state, torch.float32), "1": (conv, torch.bfloat16)}[k[-1]]
+        assert (tuple(t.shape), t.dtype) == want, k
+
+
+def _check_abstract_caches(arch, cache_len=20):
+    """The port's ``abstract_caches`` against the reference's: paths,
+    shapes and dtypes."""
+    cfg = get_smoke(arch)
+    ours = flatten(tengine.abstract_caches(cfg, 3, cache_len))
     theirs = {
         "/".join(_path_str(p) for p in path): leaf
         for path, leaf in jax.tree_util.tree_flatten_with_path(
-            jengine.abstract_caches(jget_smoke(arch), 3, 20))[0]
+            jengine.abstract_caches(jget_smoke(arch), 3, cache_len))[0]
     }
     assert ours.keys() == theirs.keys()
     for k, t in ours.items():
         assert t.device.type == "meta"
-        assert tuple(t.shape) == theirs[k].shape and t.dtype == torch.bfloat16
+        assert tuple(t.shape) == theirs[k].shape, k
+        assert str(t.dtype).removeprefix("torch.") == str(theirs[k].dtype), k
+    return ours
 
 
 def test_step_makers_match_reference():
@@ -155,6 +186,23 @@ def test_moe_generate_matches_reference(arch):
     np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_generate_matches_reference(arch):
+    """Greedy generation of mamba2 and recurrentgemma SMOKE in f32, 3
+    prompts of 9 + 8 tokens (recurrentgemma past no window here: the
+    window's wrap is held in tests/test_torch_models.py): the same tokens
+    as the reference's ``generate``, whose completions the port therefore
+    shares, repetitions included."""
+    jcfg, tcfg, jp, tp = _f32_models(arch)
+    prompts = np.random.default_rng(4).integers(0, tcfg.vocab, (3, 9)).astype(np.int32)
+    want = np.asarray(jlaunch.generate(jcfg, jp, jnp.asarray(prompts), 8))
+    got = tlaunch.generate(tcfg, tp, torch.from_numpy(prompts).long(), 8)
+    assert got.shape == (3, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    gen = tlaunch.make_replica_generate(tcfg, tp, 8)
+    assert gen({"tokens": prompts[1]})["completion"] == want[1].tolist()
+
+
 def test_servepool_streams_across_waves_without_teardown():
     """Mirror of ``tests/test_open_arrival.py``'s test of the same name, on
     the port's ServePool with torch CPU replicas of the SMOKE model: every
@@ -208,7 +256,7 @@ def test_serve_launcher_runs_on_cpu(mode):
     assert "on cpu" in proc.stdout
 
 
-@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("arch", MOE + RECURRENT)
 def test_moe_serve_launcher_runs_on_cpu(arch):
     proc = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--device", "cpu",
                  "--requests", "3", "--prompt-len", "5", "--new-tokens", "3",

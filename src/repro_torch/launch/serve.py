@@ -243,10 +243,7 @@ def main(argv=None) -> None:
         raise SystemExit("the serving launcher handles token-in archs")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    try:
-        params = lm.init(cfg, gen, device=dev)
-    except NotImplementedError as e:
-        raise SystemExit(f"{args.arch}: {e}") from None
+    params = lm.init(cfg, gen, device=dev)
     if args.open_arrival:
         _open_main(cfg, params, args)
     else:

@@ -1,28 +1,27 @@
 """Residual block assembly, as in ``repro/models/blocks.py``.
 
-Block kinds ported so far
--------------------------
+Block kinds
+-----------
   attn        GQA self-attention (+ gated MLP)        dense transformers
   local       sliding-window GQA (+ gated MLP)        recurrentgemma
   attn_dense  attention (GQA or MLA) + dense MLP      MoE models, first-k layers
   attn_moe    attention (GQA or MLA) + MoE            MoE models
   ssm         Mamba-2 SSD mixer (no MLP)              mamba2
   rglru       RG-LRU recurrence + gated MLP           recurrentgemma
-
-The reference's other kinds (``enc``, ``xdec``) raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+  enc         bidirectional GQA + MLP                 seamless encoder
+  xdec        causal self-attn + cross-attn + MLP     seamless decoder
 
 Every apply returns ``(x, aux_loss, cache)`` so the layer loops in ``lm.py``
 stay uniform; decode returns ``(x, cache)`` and updates ``cache`` in place.
 A ``local`` block's cache is a ring of ``cfg.window`` slots: prefill
-re-indexes its last ``window`` positions into the slots decode writes.
+re-indexes its last ``window`` positions into the slots decode writes.  An
+``xdec`` block's cache is the pair ``(self-attention K/V, memory K/V)``: the
+encoder memory's K/V, which prefill computes and decode only reads.
 """
 
 from __future__ import annotations
 
 import torch
-
-from repro_torch.roadmap import not_ported
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -37,11 +36,10 @@ __all__ = [
     "block_decode",
     "block_init_cache",
     "make_rope_fn",
-    "not_ported",
+    "memory_kv",
 ]
 
-_PORTED = ("attn", "local", "attn_dense", "attn_moe", "ssm", "rglru")
-_NOT_YET = ("enc", "xdec")
+_PORTED = ("attn", "local", "attn_dense", "attn_moe", "ssm", "rglru", "enc", "xdec")
 
 
 # ------------------------------------------------------------------ MLP bits
@@ -49,7 +47,7 @@ def _mlp_params(generator, cfg: ModelConfig, d_ff: int | None = None, **kw) -> d
     d = cfg.d_model
     f = d_ff if d_ff is not None else cfg.d_ff
     if cfg.act == "plain":  # non-gated (seamless)
-        raise not_ported("enc")
+        return {"w_in": param(generator, (d, f), **kw), "w_out": param(generator, (f, d), **kw)}
     return {
         "w_gate": param(generator, (d, f), **kw),
         "w_up": param(generator, (d, f), **kw),
@@ -58,6 +56,8 @@ def _mlp_params(generator, cfg: ModelConfig, d_ff: int | None = None, **kw) -> d
 
 
 def _mlp_apply(p: dict, x, cfg: ModelConfig):
+    if "w_in" in p:
+        return dense(torch.relu(dense(x, p["w_in"])), p["w_out"])
     act = _act(cfg.act if cfg.act in ("silu", "gelu") else "silu")
     return dense(act(dense(x, p["w_gate"])) * dense(x, p["w_up"]), p["w_down"])
 
@@ -70,8 +70,6 @@ def make_rope_fn(cfg: ModelConfig, positions):
 
 
 def _check(kind: str) -> None:
-    if kind in _NOT_YET:
-        raise not_ported(kind)
     if kind not in _PORTED:
         raise ValueError(f"unknown block kind {kind!r}")
 
@@ -95,8 +93,13 @@ def block_params(generator, cfg: ModelConfig, kind: str, *, layers: int = 0,
         return p
     if kind == "rglru":
         p["rec"] = rglru_mod.rglru_params(generator, cfg, **kw)
+    elif kind in ("enc", "xdec"):  # GQA whatever cfg.mla says, as the reference's
+        p["attn"] = attn_mod.gqa_params(generator, cfg, **kw)
     else:
         p["attn"] = _attn_params(generator, cfg, **kw)
+    if kind == "xdec":
+        p["normx"] = param(generator, (cfg.d_model,), init="zeros", **kw)
+        p["xattn"] = attn_mod.gqa_params(generator, cfg, **kw)
     p["norm2"] = param(generator, (cfg.d_model,), init="zeros", **kw)
     if kind == "attn_moe":
         p["moe"] = moe_mod.moe_params(generator, cfg, **kw)
@@ -107,8 +110,14 @@ def block_params(generator, cfg: ModelConfig, kind: str, *, layers: int = 0,
 
 
 # --------------------------------------------------------------------- apply
-def _self_attn(p, x, cfg: ModelConfig, aux, *, window: int, want_cache: bool):
+def _self_attn(p, x, cfg: ModelConfig, aux, *, window: int, want_cache: bool,
+               bidirectional: bool = False):
     """Returns (y, cache | None)."""
+    if bidirectional:  # the encoder: rotary at its positions, no causal mask
+        q, k, v = attn_mod._qkv(p, x, cfg, make_rope_fn(cfg, aux["positions"]))
+        o = attn_mod.flash_attention(q, k, v, causal=False, chunk=aux["chunk"])
+        y = dense(o.reshape(*x.shape[:2], -1), p["wo"])
+        return y, ((k, v) if want_cache else None)
     if cfg.mla is not None:
         out = attn_mod.mla_attend(p, x, cfg, aux["positions"], chunk=aux["chunk"],
                                   return_cache=want_cache)
@@ -118,9 +127,31 @@ def _self_attn(p, x, cfg: ModelConfig, aux, *, window: int, want_cache: bool):
     return out if want_cache else (out, None)
 
 
+def _cross_attn(p, x, cfg: ModelConfig, mkv):
+    """Cross-attention: q from ``x``, K/V the encoder memory's (no rotary on
+    either), in key chunks of 1024 whatever the caller's chunk, as the
+    reference's."""
+    b, s, _ = x.shape
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads, cfg.head_dim_)
+    k, v = mkv
+    o = attn_mod.flash_attention(q, k, v, causal=False, chunk=1024)
+    return dense(o.reshape(b, s, -1), p["wo"])
+
+
+def memory_kv(p_xattn, memory, cfg: ModelConfig):
+    """One decoder layer's K/V ``[B, S_enc, Hkv, hd]`` of the encoder memory."""
+    b, s, _ = memory.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    k = dense(memory, p_xattn["wk"], p_xattn.get("bk")).reshape(b, s, hkv, hd)
+    v = dense(memory, p_xattn["wv"], p_xattn.get("bv")).reshape(b, s, hkv, hd)
+    return k, v
+
+
 def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
     """Returns (x, aux_loss, cache); the aux loss is the MoE load-balance
-    loss of an ``attn_moe`` block and 0 otherwise."""
+    loss of an ``attn_moe`` block and 0 otherwise.  An ``xdec`` block
+    cross-attends ``aux["memory_kv"]`` or, without it, the K/V of
+    ``aux["memory"]`` (the encoder's output)."""
     _check(kind)
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
@@ -136,10 +167,18 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
         y, cache = _self_attn(
             p["attn"], xn, cfg, aux,
             window=cfg.window if kind in ("attn", "local") else 0, want_cache=want_cache,
+            bidirectional=kind == "enc",
         )
         if want_cache and kind == "local":
             cache = _ring_from_full(cache, cfg.window)
     x = x + y
+    if kind == "xdec":
+        mkv = aux.get("memory_kv")
+        if mkv is None:
+            mkv = memory_kv(p["xattn"], aux["memory"], cfg)
+        x = x + _cross_attn(p["xattn"], rms_norm(x, p["normx"], cfg.norm_eps), cfg, mkv)
+        if want_cache:
+            cache = (cache, mkv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
         top_i, top_w, probs = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
@@ -166,8 +205,13 @@ def _ring_from_full(kv, window: int):
 
 # -------------------------------------------------------------------- decode
 def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
-    """Single-token step.  Returns (x, cache'); ``cache`` is updated in place."""
+    """Single-token step.  Returns (x, cache'); ``cache`` is updated in place
+    (an ``xdec`` block's memory K/V only read)."""
     _check(kind)
+    if kind == "xdec":
+        cache, mkv = cache
+        if mkv is None:
+            raise ValueError("an xdec block decodes after a prefill: its memory K/V is None")
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         y, cache = ssm_mod.ssm_decode(p["ssm"], xn, cfg, cache)
@@ -184,6 +228,9 @@ def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
         y, cache = attn_mod.gqa_decode(p["attn"], xn, cfg, rope_fn, cache, pos,
                                        window=cfg.window if kind == "local" else 0)
     x = x + y
+    if kind == "xdec":
+        x = x + _cross_attn(p["xattn"], rms_norm(x, p["normx"], cfg.norm_eps), cfg, mkv)
+        cache = (cache, mkv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
         top_i, top_w, _ = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
@@ -199,8 +246,11 @@ def block_init_cache(cfg: ModelConfig, kind: str, bsz: int, cache_len: int, dtyp
     reference's), for MLA the compressed ``c`` ``[B, cache_len,
     kv_lora_rank]`` and the rope key ``[B, cache_len, qk_rope_dim]``; SSM
     and RG-LRU blocks their fixed-size states (:func:`ssm.ssm_init_cache`,
-    :func:`rglru.rglru_init_cache`)."""
+    :func:`rglru.rglru_init_cache`).  ``enc`` blocks keep no cache; an
+    ``xdec`` block's pair is built by ``lm.init_caches``."""
     _check(kind)
+    if kind in ("enc", "xdec"):
+        raise ValueError(f"no cache for kind {kind!r}")
     if kind == "ssm":
         return ssm_mod.ssm_init_cache(cfg, bsz, dtype, layers=layers, device=device)
     if kind == "rglru":

@@ -1,16 +1,18 @@
-"""Model assembly for decoder-only LMs, as in ``repro/models/lm.py``.
+"""Model assembly for decoder-only LMs and encoder-decoders, as in
+``repro/models/lm.py``.
 
 The layer stack is grouped into runs of identical block kinds (see
 ``ModelConfig.scan_groups``).  As in the reference, each run's parameters
 are stacked ``[L, ...]``, and so are its caches (a list of groups, a tuple
 per block kind, leaves ``[L, B, S, Hkv, hd]``, or ``[L, B, S, r]`` for
-MLA's compressed cache, or an SSM or RG-LRU block's fixed-size state); the
+MLA's compressed cache, or an SSM or RG-LRU block's fixed-size state, or
+an ``xdec`` block's pair of self-attention K/V and encoder-memory K/V); the
 reference's ``lax.scan`` over a run, a ``cycle:`` group's included, becomes
 a Python loop over views of the stack.
 
 Public entry points (functions over plain nested dicts of tensors):
   init(cfg, generator)          -> params
-  forward(params, batch, cfg)   -> (logits [B, S, vocab] f32, aux loss)
+  forward(params, batch, cfg)   -> (logits [B, S, vocab_padded] f32, aux loss)
   prefill(params, batch, cfg)   -> (last-position logits, caches)
   decode_step(params, tok, caches, pos, cfg) -> (logits, caches)
   init_caches / pad_caches / param_count
@@ -19,9 +21,15 @@ Public entry points (functions over plain nested dicts of tensors):
 ``caches`` in place; the caller owns them (one set per request).  ``init``
 builds the multi-token-prediction module's parameters (``tree["mtp"]``,
 DeepSeek-V3); ``loss_fn`` and the MTP
-forward come with the port's training slice.  Encoder-decoder and
-vision-frontend models raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+forward come with the port's training slice.
+
+A batch holds ``tokens`` [B, S], or ``embeds`` [B, S, d] for a model with a
+frontend stub (qwen2-vl's patch embeddings), and ``positions``: [B, S], or
+[3, B, S] (t, h, w) under M-RoPE, where they are required.  An
+encoder-decoder (seamless) takes ``enc_embeds`` [B, S_enc, d] (the audio
+frame stub) and optional ``enc_positions`` for its encoder beside the
+decoder's ``tokens``.  Its caches start at ``prefill``, which fills each
+layer's memory K/V: :func:`init_caches` leaves that slot ``None``.
 """
 
 from __future__ import annotations
@@ -33,7 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.roadmap import not_ported
 
 from . import blocks as blk
 from .bridge import flatten
@@ -68,9 +75,7 @@ def _group_kinds(group_kind: str) -> list[str]:
 
 def _decoder_groups(cfg: ModelConfig):
     if cfg.enc_layers:
-        raise not_ported("xdec")
-    if cfg.frontend != "none":
-        raise not_ported("frontend")
+        return (("xdec", cfg.n_layers),)
     return cfg.scan_groups()
 
 
@@ -79,7 +84,11 @@ def _embed_scale(cfg: ModelConfig) -> float:
 
 
 def _unstack(tree, count: int) -> list:
-    """Per-layer views ``[tree[0], ..., tree[count-1]]`` of a stacked tree."""
+    """Per-layer views ``[tree[0], ..., tree[count-1]]`` of a stacked tree
+    (a ``None`` leaf, an ``xdec`` cache's memory slot before prefill, stays
+    ``None``)."""
+    if tree is None:
+        return [None] * count
     if isinstance(tree, dict):
         subs = {k: _unstack(v, count) for k, v in tree.items()}
         return [{k: subs[k][i] for k in subs} for i in range(count)]
@@ -127,6 +136,11 @@ def init(
     }
     if not cfg.tie_embeddings:
         tree["head"] = param(generator, (cfg.d_model, cfg.vocab_padded), scale=0.02, **kw)
+    if cfg.enc_layers:
+        tree["enc_groups"] = [
+            {"b0": blk.block_params(generator, cfg, "enc", layers=cfg.enc_layers, **kw)}
+        ]
+        tree["enc_norm"] = param(generator, (cfg.d_model,), init="zeros", **kw)
     if cfg.mtp:  # DeepSeek-V3 multi-token prediction module (depth 1)
         tree["mtp"] = {
             "norm_h": param(generator, (cfg.d_model,), init="zeros", **kw),
@@ -185,25 +199,48 @@ def _logits(params, x, cfg: ModelConfig):
     return logits
 
 
+def _arange_positions(ref: torch.Tensor) -> torch.Tensor:
+    """[B, S] positions 0..S-1 for ``ref`` [B, S, ...]."""
+    b, s = ref.shape[:2]
+    return torch.arange(s, device=ref.device)[None].expand(b, s)
+
+
 def _make_aux(batch, cfg: ModelConfig, chunk=1024):
     if cfg.mrope:
         positions = batch["positions"]  # [3, B, S]
     else:
-        tokens = batch["tokens"]
+        tokens = batch.get("tokens")
         positions = batch.get("positions")
         if positions is None:
-            b, s = tokens.shape
-            positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+            positions = _arange_positions(tokens if tokens is not None else batch["embeds"])
     return {"positions": positions, "chunk": chunk}
 
 
+def _encode(params, batch, cfg: ModelConfig, aux):
+    """The encoder stack of an enc-dec model (bidirectional), then its norm."""
+    x = batch["enc_embeds"].to(_torch_dtype(cfg.dtype))
+    positions = batch.get("enc_positions")
+    enc_aux = dict(aux, positions=_arange_positions(x) if positions is None else positions)
+    x, _, _ = _run_groups(params["enc_groups"], x, cfg, enc_aux, (("enc", cfg.enc_layers),))
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _decoder_input(params, batch, cfg: ModelConfig):
+    """The decoder's input rows: ``embeds`` where the batch has them, except
+    in an enc-dec model, whose decoder reads ``tokens``."""
+    if "embeds" in batch and not cfg.enc_layers:
+        return batch["embeds"].to(_torch_dtype(cfg.dtype))
+    return _embed_tokens(params, batch["tokens"], cfg)
+
+
 def forward(params, batch, cfg: ModelConfig, chunk: int = 1024):
-    """Full-sequence forward.  batch: tokens [B,S] (and optional positions).
+    """Full-sequence forward over a batch (see the module docstring).
     Returns (logits [B, S, vocab_padded] f32, aux loss)."""
-    groups = _decoder_groups(cfg)
     aux = _make_aux(batch, cfg, chunk)
-    x = _embed_tokens(params, batch["tokens"], cfg)
-    x, aux_loss, _ = _run_groups(params["groups"], x, cfg, aux, groups)
+    if cfg.enc_layers:
+        aux["memory"] = _encode(params, batch, cfg, aux)
+    x = _decoder_input(params, batch, cfg)
+    x, aux_loss, _ = _run_groups(params["groups"], x, cfg, aux, _decoder_groups(cfg))
     return _logits(params, x, cfg), aux_loss
 
 
@@ -216,24 +253,28 @@ def init_caches(
     *,
     device: str | torch.device = "cuda",
 ):
-    """Zero caches in the layout ``prefill`` returns."""
+    """Zero caches in the layout ``prefill`` returns; an ``xdec`` block's
+    memory K/V is ``None`` until a prefill computes it, as in the reference."""
     dtype = dtype or _torch_dtype(cfg.dtype)
     dev = resolve_device(device)
-    return [
-        tuple(
-            blk.block_init_cache(cfg, k, bsz, cache_len, dtype, layers=count, device=dev)
-            for k in _group_kinds(kind)
-        )
-        for kind, count in _decoder_groups(cfg)
-    ]
+
+    def one(kind: str, count: int):
+        if kind == "xdec":  # (self-attention K/V, memory K/V)
+            return (one("attn", count), None)
+        return blk.block_init_cache(cfg, kind, bsz, cache_len, dtype, layers=count, device=dev)
+
+    return [tuple(one(k, count) for k in _group_kinds(kind))
+            for kind, count in _decoder_groups(cfg)]
 
 
 def prefill(params, batch, cfg: ModelConfig, chunk: int = 1024):
     """Run the prompt; returns (last-position logits [B, 1, vocab], caches)."""
-    groups = _decoder_groups(cfg)
     aux = _make_aux(batch, cfg, chunk)
-    x = _embed_tokens(params, batch["tokens"], cfg)
-    x, _, caches = _run_groups(params["groups"], x, cfg, aux, groups, want_cache=True)
+    if cfg.enc_layers:
+        aux["memory"] = _encode(params, batch, cfg, aux)
+    x = _decoder_input(params, batch, cfg)
+    x, _, caches = _run_groups(params["groups"], x, cfg, aux, _decoder_groups(cfg),
+                               want_cache=True)
     return _logits(params, x[:, -1:, :], cfg), caches
 
 
@@ -242,13 +283,22 @@ def pad_caches(caches, cfg: ModelConfig, cache_len: int):
     can continue (zeros after the prompt): GQA's ``[L, B, S, Hkv, hd]`` and
     MLA's ``[L, B, S, r]`` alike.  A ``local`` block's ring and the SSM and
     RG-LRU states have a fixed size and stay as they are, as in the
-    reference."""
+    reference.  Of an ``xdec`` pair only the self-attention K/V grow: zero
+    keys padded onto the memory would enter the unmasked cross-attention."""
+
+    def pad(kv):
+        return tuple(_pad_seq(x, cache_len) for x in kv)
+
     out = []
     for cache, (kind, _count) in zip(caches, _decoder_groups(cfg)):
-        out.append(tuple(
-            tuple(_pad_seq(x, cache_len) for x in cache[i]) if k in _GROWS else cache[i]
-            for i, k in enumerate(_group_kinds(kind))
-        ))
+        new = []
+        for c, k in zip(cache, _group_kinds(kind)):
+            if k in _GROWS:
+                c = pad(c)
+            elif k == "xdec":
+                c = (pad(c[0]), c[1])
+            new.append(c)
+        out.append(tuple(new))
     return out
 
 
@@ -262,7 +312,9 @@ def _pad_seq(x: torch.Tensor, cache_len: int) -> torch.Tensor:
 
 def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig):
     """One decode step.  tokens [B, 1]; ``pos`` a Python int, the number of
-    tokens already in the caches, which are updated in place."""
+    tokens already in the caches, which are updated in place.  Under M-RoPE
+    the token's position is ``pos`` in all three sections, as in the
+    reference."""
     pos = operator.index(pos)
     bsz = tokens.shape[0]
     shape = (3, bsz, 1) if cfg.mrope else (bsz, 1)

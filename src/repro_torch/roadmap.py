@@ -7,9 +7,6 @@ from __future__ import annotations
 __all__ = ["not_ported"]
 
 _ROADMAP_ITEM = {
-    "enc": "queue item 4, encoder-decoder",
-    "xdec": "queue item 4, encoder-decoder",
-    "frontend": "queue item 5, VLM",
     "sharded serving": "queue item 6, input_specs and sharded serving",
 }
 

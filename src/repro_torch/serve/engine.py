@@ -9,7 +9,9 @@ eagerly; there is nothing to trace.  They take a mesh-free context only
 (``None``, or an object whose ``mesh`` is ``None``): the KV-cache sharding
 policy (``cache_pspecs``/``cache_shardings``) comes with the port's parallel
 slice.  ``abstract_caches`` gives the cache tree as ``meta`` tensors: K/V
-for GQA blocks, the compressed ``c`` and rope key for MLA.
+for GQA blocks, the compressed ``c`` and rope key for MLA, and for an
+enc-dec model's ``xdec`` blocks the pair of self-attention K/V and
+encoder-memory K/V.
 
 Host plane
 ----------
@@ -62,12 +64,17 @@ def _mesh_free(ctx) -> None:
         raise not_ported("sharded serving")
 
 
-def abstract_caches(cfg: ModelConfig, bsz: int, cache_len: int):
-    """``meta``-device tensors matching what ``lm.prefill`` returns as caches
-    (the encoder-memory K/V of enc-dec models comes with that family)."""
-    if cfg.enc_layers:
-        raise not_ported("xdec")
-    return lm.init_caches(cfg, bsz, cache_len, device="meta")
+def abstract_caches(cfg: ModelConfig, bsz: int, cache_len: int, enc_len: int | None = None):
+    """``meta``-device tensors matching what ``lm.prefill`` returns as caches.
+    An enc-dec model's memory slot (``None`` in ``lm.init_caches``) holds
+    the encoder-memory K/V ``[L, B, enc_len, Hkv, hd]`` (``enc_len``
+    defaults to ``cache_len``, as in the reference)."""
+    caches = lm.init_caches(cfg, bsz, cache_len, device="meta")
+    if not cfg.enc_layers:
+        return caches
+    (((sa, _memory),),) = caches  # one group of xdec blocks
+    shape = (cfg.n_layers, bsz, enc_len or cache_len, cfg.n_kv_heads, cfg.head_dim_)
+    return [((sa, (sa[0].new_empty(shape), sa[0].new_empty(shape))),)]
 
 
 # ---------------------------------------------------------------- step makers

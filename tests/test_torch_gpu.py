@@ -1,6 +1,6 @@
 """The port on the card: its CUDA kernel against its plain PyTorch version,
 the serving path's SMOKE models (dense, MoE, MLA, Mamba-2, RG-LRU with local
-attention) against the same models on the CPU, and the device scheduler's
+attention, enc-dec, VLM) against the same models on the CPU, and the device scheduler's
 run on the card against its run on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
@@ -207,6 +207,70 @@ def test_recurrent_smoke_model_on_card_matches_cpu(cuda, arch, dtype):
         wl, wc = lm.decode_step(cpu, toks[:, i : i + 1], wc, i, cfg)
         gl, gc = lm.decode_step(card, toks[:, i : i + 1].to(cuda), gc, i, cfg)
         close(gl, wl)
+
+
+def _frontend_batch(cfg, params, s, seed=0):
+    """A SMOKE batch of ``s`` positions: seamless's decoder tokens and 24
+    encoder frames (std 0.2), or qwen2-vl's embeds (16 patches on a 4x4
+    grid at (0, i, j), then text embedding rows at t = h = w = 4 + k) and
+    their [3, B, s] positions; with the continuation's tokens."""
+    r = np.random.default_rng(seed)
+    toks = torch.from_numpy(r.integers(0, cfg.vocab, (2, s)))
+    if cfg.enc_layers:
+        enc = torch.from_numpy((r.standard_normal((2, 24, cfg.d_model)) * 0.2).astype(np.float32))
+        return {"tokens": toks, "enc_embeds": enc}, toks
+    patches = torch.from_numpy(r.standard_normal((2, 16, cfg.d_model)).astype(np.float32))
+    emb = torch.cat([patches.to(params["embed"].dtype), params["embed"][toks[:, 16:]]], 1)
+    i, j = np.divmod(np.arange(16), 4)
+    grid = np.stack([np.zeros(16, int), i, j])
+    pos = np.concatenate([grid, np.broadcast_to(4 + np.arange(s - 16), (3, s - 16))], 1)
+    return ({"embeds": emb, "positions": torch.from_numpy(np.broadcast_to(pos[:, None], (3, 2, s))
+                                                          .copy())}, toks)
+
+
+def _prefix(batch, n):
+    """The first ``n`` decoder positions of a batch (the encoder frames whole)."""
+    out = dict(batch)
+    for k in ("tokens", "embeds"):
+        if k in out:
+            out[k] = out[k][:, :n]
+    if "positions" in out:
+        out["positions"] = out["positions"][..., :n]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
+def test_frontend_smoke_model_on_card_matches_cpu(cuda, arch, dtype):
+    """The enc-dec and VLM SMOKE models, the same weights on the card and on
+    the CPU: forward, prefill of 20 positions (seamless against 24 encoder
+    frames; qwen2-vl's image and text embeds on grid positions) and 4
+    decode steps continuing it; the memory K/V unchanged by decode.  f32
+    within 1e-4; bf16 within 0.02 (``tests/test_torch_models.py``'s
+    BF16_TOL)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke(arch).with_(dtype=str(dtype).removeprefix("torch."))
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=dtype)
+    card = _to(cpu, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 0.02
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol)
+
+    batch, toks = _frontend_batch(cfg, cpu, 24)
+    want, _ = lm.forward(cpu, batch, cfg)
+    got, _ = lm.forward(card, _to(batch, cuda), cfg)
+    close(got, want)
+    wl, wc = lm.prefill(cpu, _prefix(batch, 20), cfg)
+    gl, gc = lm.prefill(card, _to(_prefix(batch, 20), cuda), cfg)
+    close(gl, wl)
+    memory = [t.clone() for t in gc[0][0][1]] if cfg.enc_layers else []
+    wc, gc = lm.pad_caches(wc, cfg, 24), lm.pad_caches(gc, cfg, 24)
+    for i in range(20, 24):
+        wl, wc = lm.decode_step(cpu, toks[:, i : i + 1], wc, i, cfg)
+        gl, gc = lm.decode_step(card, toks[:, i : i + 1].to(cuda), gc, i, cfg)
+        close(gl, wl)
+    assert all(torch.equal(a, b) for a, b in zip(gc[0][0][1] if memory else [], memory))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])

@@ -1,6 +1,8 @@
 """The port's model stack (``repro_torch.models``, ``repro_torch.configs``):
 the dense family, the MoE/MLA family and the recurrent families (Mamba-2
-SSD; RG-LRU with local attention), against the JAX reference on the CPU.
+SSD; RG-LRU with local attention), against the JAX reference on the CPU;
+the init trees and counts of the enc-dec and VLM families (their parity is
+in ``tests/test_torch_encdec.py`` and ``tests/test_torch_vlm.py``).
 
 Inputs are made with numpy from a seed; parameters come from
 ``repro.models.lm.init`` and cross through ``repro_torch.models.bridge`` in
@@ -32,6 +34,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 from repro_torch.models.bridge import flatten, params_from_flat
+from repro_torch.roadmap import not_ported
 
 # SMOKE-size tensors: one intra-op thread is as fast, and leaves the other
 # test workers' cores (and their timing-sensitive threads) alone.
@@ -41,6 +44,7 @@ ROOT = Path(__file__).resolve().parent.parent
 DENSE = ["phi4-mini-3.8b", "minitron-4b", "mistral-nemo-12b", "qwen1.5-32b"]
 MOE = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
 RECURRENT = ["mamba2-2.7b", "recurrentgemma-2b"]
+FRONTEND = ["seamless-m4t-medium", "qwen2-vl-2b"]  # enc-dec (audio stub), VLM (vision stub)
 S = 16  # sequence length of the model comparisons
 F32_TOL = 1e-4  # logits, f32: summation order of CPU matmuls differs
 BF16_TOL = 0.02  # logits, bf16: a few bf16 ulps (2^-8 at 0.5); observed max 0.0056
@@ -116,7 +120,7 @@ def test_registry_matches():
     assert set(tconfigs.__all__) == set(jconfigs.__all__) - {"input_specs"}
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_param_count_matches(arch):
     full = jconfigs.get_config(arch)
     assert tlm.param_count(tconfigs.get_config(arch)) == jlm.param_count(full)
@@ -144,6 +148,16 @@ def test_recurrent_full_counts():
     2,894,574,080 (5.79 GB)."""
     assert tconfigs.get_config("mamba2-2.7b").param_count() == 2_702_599_680
     assert tconfigs.get_config("recurrentgemma-2b").param_count() == 2_894_574_080
+
+
+def test_frontend_full_counts():
+    """At full width and depth: seamless-m4t-medium 877,099,008 parameters
+    (12 encoder and 12 decoder layers; 1.75 GB in bf16), qwen2-vl-2b
+    1,777,088,000 (28 layers; 3.55 GB); every one of them active."""
+    for arch, n in (("seamless-m4t-medium", 877_099_008), ("qwen2-vl-2b", 1_777_088_000)):
+        cfg = tconfigs.get_config(arch)
+        assert cfg.param_count() == cfg.active_param_count() == n
+        assert n == jlm.param_count(jconfigs.get_config(arch), active_only=True)
 
 
 def test_phi4_full_width_count():
@@ -205,10 +219,33 @@ def test_init_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", FRONTEND)
 def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, queue item"):
-        tlm.init(tconfigs.get_smoke(arch), torch.Generator(), device="cpu")
+    """The enc-dec and VLM trees, at SMOKE size and, on the ``meta``
+    device, at full width: the reference's paths and shapes (seamless's
+    ``enc_groups``, ``enc_norm`` and the ``xdec`` blocks' ``normx`` and
+    ``xattn``, its plain ``w_in``/``w_out`` MLP; qwen2-vl's q/k/v biases),
+    all in bf16, norms and biases zero."""
+    cfg = tconfigs.get_smoke(arch)
+    ours = flatten(tlm.init(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    theirs = _flatten(jlm.init(jconfigs.get_smoke(arch), jax.random.key(0))[0])
+    assert ours.keys() == theirs.keys()
+    for k, t in ours.items():
+        assert tuple(t.shape) == theirs[k].shape, k
+        assert t.dtype == torch.bfloat16, k
+        if "norm" in k or k.endswith(("/bq", "/bk", "/bv")):
+            assert not t.any(), k
+    full = tconfigs.get_config(arch)
+    meta = flatten(tlm.init(full, None, device="meta"))
+    shapes, _ = jlm.init_shapes(jconfigs.get_config(arch))
+    want = {"/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    assert {k: tuple(t.shape) for k, t in meta.items()} == want
+    if cfg.enc_layers:
+        assert ours["groups/0/b0/mlp/w_in"].shape == (cfg.n_layers, cfg.d_model, cfg.d_ff)
+        assert ours["enc_groups/0/b0/attn/wq"].shape[0] == cfg.enc_layers
+    else:
+        assert any(k.endswith("/attn/bq") for k in ours)
 
 
 def test_cuda_request_without_card_raises():
@@ -442,10 +479,11 @@ def test_mrope_through_the_model_matches():
 
 
 def test_not_ported_error_names_item():
-    err = tblocks.not_ported("enc")
-    assert isinstance(err, NotImplementedError) and "queue item 4, encoder-decoder" in str(err)
-    with pytest.raises(NotImplementedError, match="queue item 4, encoder-decoder"):
-        tlm.param_count(tconfigs.get_smoke("seamless-m4t-medium"), active_only=True)
+    err = not_ported("sharded serving")
+    assert isinstance(err, NotImplementedError)
+    assert "ROADMAP.md §1, queue item 6, input_specs and sharded serving" in str(err)
+    with pytest.raises(KeyError):  # every block kind is ported: none has an item left
+        not_ported("xdec")
     with pytest.raises(ValueError, match="unknown block kind"):
         tblocks.block_params(None, tconfigs.get_smoke("phi4-mini-3.8b"), "conv",
                              dtype=torch.float32, device=torch.device("meta"))

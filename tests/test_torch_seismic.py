@@ -180,7 +180,8 @@ def test_port_runs_with_jax_and_reference_blocked():
     blocked in ``sys.modules`` it imports, runs one CPU shot, serves a SMOKE
     model (one greedy generation and a 2-replica CPU ServePool), the MoE
     SMOKE models (moonshot, deepseek with MLA) and the recurrent ones
-    (mamba2, recurrentgemma), runs the device scheduler at
+    (mamba2, recurrentgemma), prefills and decodes the enc-dec and VLM
+    SMOKE models (seamless, qwen2-vl), runs the device scheduler at
     P=8 on the CPU and one simulation."""
     code = textwrap.dedent(
         """
@@ -215,6 +216,19 @@ def test_port_runs_with_jax_and_reference_blocked():
             params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
             out = generate(cfg, params, torch.zeros((2, 4), dtype=torch.long), 2)
             assert out.shape == (2, 2)
+        for arch, batch in (
+                ("seamless-m4t-medium", {"tokens": torch.zeros((2, 4), dtype=torch.long),
+                                         "enc_embeds": torch.ones((2, 6, 64))}),
+                ("qwen2-vl-2b", {"embeds": torch.ones((2, 4, 64)),
+                                 "positions": torch.zeros((3, 2, 4), dtype=torch.long)})):
+            cfg = repro_torch.configs.get_smoke(arch)
+            params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+            logits, caches = lm.prefill(params, batch, cfg)
+            caches = lm.pad_caches(caches, cfg, 6)
+            for i in (4, 5):
+                logits, caches = lm.decode_step(params, logits[:, -1].argmax(-1)[:, None],
+                                                caches, i, cfg)
+            assert logits.shape == (2, 1, cfg.vocab_padded) and bool(logits.isfinite().all())
         from repro_torch.core import simulator, device_sched
         state, rounds, makespan = device_sched.virtual_run(
             8, [24, 16, 8, 8, 4, 2, 1, 1], 192, 2, device="cpu")

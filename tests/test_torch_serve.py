@@ -100,15 +100,27 @@ def test_recurrent_abstract_caches_match_reference_shapes(arch):
         assert (tuple(t.shape), t.dtype) == want, k
 
 
-def _check_abstract_caches(arch, cache_len=20):
+@pytest.mark.parametrize("enc_len", [None, 30])
+def test_encdec_abstract_caches_match_reference_shapes(enc_len):
+    """seamless's ``(self K/V, memory K/V)`` pairs, the memory ``[L, B,
+    enc_len, Hkv, hd]`` (``enc_len`` defaults to the cache length)."""
+    ours = _check_abstract_caches("seamless-m4t-medium", enc_len=enc_len)
+    cfg = get_smoke("seamless-m4t-medium")
+    assert set(ours) == {"0/0/0/0", "0/0/0/1", "0/0/1/0", "0/0/1/1"}
+    for k, t in ours.items():  # k: "group/block/pair half/leaf"
+        s = 20 if k.startswith("0/0/0/") else (enc_len or 20)
+        assert tuple(t.shape) == (cfg.n_layers, 3, s, cfg.n_kv_heads, cfg.head_dim_), k
+
+
+def _check_abstract_caches(arch, cache_len=20, enc_len=None):
     """The port's ``abstract_caches`` against the reference's: paths,
     shapes and dtypes."""
     cfg = get_smoke(arch)
-    ours = flatten(tengine.abstract_caches(cfg, 3, cache_len))
+    ours = flatten(tengine.abstract_caches(cfg, 3, cache_len, enc_len))
     theirs = {
         "/".join(_path_str(p) for p in path): leaf
         for path, leaf in jax.tree_util.tree_flatten_with_path(
-            jengine.abstract_caches(jget_smoke(arch), 3, cache_len))[0]
+            jengine.abstract_caches(jget_smoke(arch), 3, cache_len, enc_len))[0]
     }
     assert ours.keys() == theirs.keys()
     for k, t in ours.items():
@@ -263,6 +275,15 @@ def test_moe_serve_launcher_runs_on_cpu(arch):
                  "--open-arrival", "--rate", "40", "--replicas", "2"])
     assert proc.returncode == 0, proc.stderr
     assert "on cpu" in proc.stdout and "requests/replica" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
+def test_serve_launcher_refuses_non_token_archs(arch):
+    """As the reference's launcher: an enc-dec or VLM arch is refused before
+    any weight is drawn (their requests carry embeddings, not token ids)."""
+    proc = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--device", "cpu"])
+    assert proc.returncode != 0
+    assert "handles token-in archs" in proc.stderr
 
 
 def test_serve_launcher_defaults_to_cuda():

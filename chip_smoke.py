@@ -95,7 +95,25 @@ Phases (each prints its lines; any failure exits non-zero):
             parameters), no cut: an image of VLM_GRID^2 stub patch
             embeddings on an M-RoPE grid and VLM_TEXT text tokens, phase
             15's checks and phase 8's times (the prefill over the image and
-            text); no pool.
+            text); no pool;
+17. train-check  training phi4-mini-3.8b at full width, after the serving
+            models are freed: HetDPTrainer's combined gradient over
+            TRAIN_TASKS microbatches of 2 x 1024 tokens (3 workers, slowdowns
+            {1, 1, 4}, steals) against its first worker's alone over the same
+            microbatches, in f32 at TRAIN_F32_LAYERS layers within a relative
+            L2 of TRAIN_F32_REL_L2 over the whole tree and over each leaf, and
+            in bf16 at TRAIN_LAYERS layers within TRAIN_BF16_REL_L2 and
+            TRAIN_BF16_LEAF_REL_L2, bounds measured on the CPU first;
+18. train-main  TRAIN_STEPS optimizer steps of that pool at TRAIN_LAYERS of
+            the 32 layers (bf16 parameters, f32 moments, full remat): loss,
+            grad_norm, tasks per worker, steals (at least one), makespan
+            beside the paced schedule's floor; one microbatch's ms (forward,
+            recompute, backward) and an AdamW update's ms, CUDA events, beside
+            their bounds, and the step's work beside its bound at the card's
+            peak rates; the loss finite, grad_norm > 0, every parameter leaf
+            moved; peak memory; then a ResilientDriver run at SMOKE size whose
+            failing worker is removed, and a fresh trainer that resumes from
+            its checkpoint.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -112,6 +130,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 N = 512            # full width: a 512^3 shot volume, 134 M cells
@@ -244,6 +263,46 @@ SCHED_BIG = (1024, 204, 16, 30)
 SCHED_WINDOWS = 100_000
 SCHED_RTOL = 1e-6
 SCHED_MAX_ROUNDS = 4096
+# Phases 17-18: training phi4-mini-3.8b at full width through HetDPTrainer.
+# 16 of its 32 layers: bf16 parameters (5.68 GB), f32 moments (22.7 GB) and
+# 3 workers' accumulators and fresh gradients (34.1 GB) make 62.5 GB before
+# activations at 16 layers, 98 GB at 32, more than the card's 80 GB.
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_LAYERS = 16
+TRAIN_F32_LAYERS = 2
+TRAIN_STEPS = 3
+# Microbatch tasks per optimizer step: 3 a worker.  A worker's queue reaches
+# the thieves' view only when it finishes its first task, and with 2 tasks a
+# worker it pops its last one at that same boundary: at 6 tasks the copied
+# A2WS never steals from the slow worker, at 9 it does (scripts/steal_probe.py).
+TRAIN_TASKS = 9
+TRAIN_ROWS, TRAIN_SEQ = 2, 1024  # one microbatch: 2 rows of 1024 tokens
+TRAIN_SLOW = (1.0, 1.0, 4.0)
+# Each worker sleeps TRAIN_PACE measured microbatches per task, times its
+# slowdown (HetDPTrainer's base_task_time), so that the slow one is slow.
+TRAIN_PACE = 1.0
+# The pool's combined gradient vs one worker's in f32, over the whole tree
+# and over each leaf alone (the embedding and head dominate the whole tree)
+TRAIN_F32_REL_L2 = 1e-5
+# The same comparison in bf16.  Each worker sums its gradients in bf16 in the
+# order its tasks ran, so another assignment rounds at other places.
+# scripts/het_dp_bf16_gap.py on the CPU, the reference's own HetDPTrainer
+# and the port's, a pool of 3 workers (one 4x slow, a steal) against one
+# worker over the same 9 microbatches (relative L2, whole tree / worst
+# leaf).  SMOKE at 2 and 4 layers, 3 trials: the whole tree 2.77e-3 to
+# 4.73e-3 over two series (reference 3.10e-3 to 4.58e-3), the worst leaf
+# 4.62e-3 to 6.07e-3 (reference 4.51e-3 to 5.19e-3).  phi4 narrowed to
+# d_model 768 (the real vocabulary), 2 trials: at 1, 2 and 4 layers the
+# whole tree reads 2.83e-3 to 2.85e-3, 3.09e-3, 3.29e-3
+# (reference 2.86e-3 to 2.96e-3, 3.22e-3 to 3.24e-3, 3.43e-3 to 3.45e-3),
+# the worst leaf 4.66e-3 to 4.92e-3 (reference 4.88e-3 to 5.07e-3) at every
+# depth.  The whole-tree gap grows with depth: on the card at full width
+# and 16 layers it read 4.38e-3 to 4.56e-3, above every narrowed CPU
+# reading.  Held at 1e-2 (2.1x the worst CPU reading) and, leaf by leaf,
+# at 1.5e-2 (2.5x).
+TRAIN_BF16_REL_L2 = 1e-2
+TRAIN_BF16_LEAF_REL_L2 = 1.5e-2
+DRIVER_STEPS = 4             # phase 18's ResilientDriver run, SMOKE size
 
 
 class SmokeError(RuntimeError):
@@ -429,7 +488,8 @@ def run() -> dict:
                         ("phases 13-14 (ssm, rglru)",
                          lambda: recurrent_phases(torch, np, gen, cuda)),
                         ("phases 15-16 (encdec, vlm)",
-                         lambda: frontend_phases(torch, np, gen, cuda))):
+                         lambda: frontend_phases(torch, np, gen, cuda)),
+                        ("phases 17-18 (train)", lambda: train_phases(torch, np, gen, cuda))):
         print(f"[clock] {what}: {time.perf_counter() - t_start:.1f} s since the start")
         phase()
     print(f"[clock] the end of the phases: {time.perf_counter() - t_start:.1f} s since the start")
@@ -1202,6 +1262,322 @@ def frontend_phases(torch, np, gen, dev) -> None:
         del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    need(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def rel_l2(torch, got, want) -> tuple[float, float, float, str]:
+    """(relative L2 distance, max|d|, the largest relative L2 of one leaf,
+    that leaf's key) of two gradient trees, in f64."""
+    from repro_torch.models.bridge import flatten
+
+    got, want = flatten(got), flatten(want)
+    need(got.keys() == want.keys(), "gradient trees of different structure")
+    num = den = worst = 0.0
+    leaf = (0.0, "")
+    for k, w in want.items():
+        d = got[k].double() - w.double()
+        dd, ww = float((d * d).sum()), float((w.double() ** 2).sum())
+        num += dd
+        den += ww
+        worst = max(worst, float(d.abs().max()))
+        leaf = max(leaf, (math.sqrt(dd / ww) if ww else (0.0 if dd == 0 else math.inf), k))
+    return math.sqrt(num / den), worst, *leaf
+
+
+def train_microbatches(torch, cfg, dev, step: int) -> list[dict]:
+    """Step ``step``'s TRAIN_TASKS microbatches of TRAIN_ROWS x TRAIN_SEQ
+    tokens from the copied SyntheticLM (seed 0), on ``dev``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_ROWS * TRAIN_TASKS, seed=0))
+    b = data.batch_at(step)
+    return [{k: torch.from_numpy(v[i::TRAIN_TASKS].copy()).to(dev) for k, v in b.items()}
+            for i in range(TRAIN_TASKS)]
+
+
+def microbatch_work(cfg, leaves, tokens: int) -> tuple[float, float]:
+    """(bytes, flops) one microbatch's gradient must move and do under full
+    remat: every parameter read and its gradient written once, the tokens
+    read; 8 flops per matmul parameter per token (2 forward, 2 recompute, 4
+    backward; the embedding is a lookup, the head a matmul) and the causal
+    attention's scores and values, 4 times (forward, recompute, backward's
+    two products)."""
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in leaves.values()) + 8 * tokens
+    matmul = sum(t.numel() for k, t in leaves.items() if k != "embed" and t.ndim >= 2
+                 and not k.split("/")[-1].startswith("norm"))
+    keys = TRAIN_ROWS * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 2 * keys * cfg.n_heads * 2 * cfg.head_dim_ * cfg.n_layers
+    return nbytes, 8 * matmul * tokens + 4 * attn
+
+
+def adamw_bytes(params, grads, opt_state) -> int:
+    """What one AdamW update must move: the gradient, parameters and both
+    moments read once, the parameters and moments written once."""
+    from repro_torch.autodiff import tree_leaves
+
+    size = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))  # noqa: E731
+    return size(grads) + 2 * (size(params) + size(opt_state["m"]) + size(opt_state["v"]))
+
+
+def paced_floor_ms(mb_ms: float) -> tuple[float, float, float]:
+    """The least makespan of a step's TRAIN_TASKS paced tasks, in ms, and its
+    two terms in microbatches of ``mb_ms``: a task costs its microbatch plus
+    a sleep of TRAIN_PACE microbatches times its worker's slowdown, so
+    (a) balanced over the workers, as if tasks could be split, the step
+    takes TRAIN_TASKS / sum(1 / (1 + TRAIN_PACE * slowdown)) microbatches;
+    (b) one card runs the microbatches one after another (threads gain
+    nothing by overlapping them: ``threads_vs_one``), and the last one
+    still sleeps: TRAIN_TASKS + TRAIN_PACE * min(slowdown)."""
+    balanced = TRAIN_TASKS / sum(1.0 / (1.0 + TRAIN_PACE * max(s, 1.0)) for s in TRAIN_SLOW)
+    serial = TRAIN_TASKS + TRAIN_PACE * max(min(TRAIN_SLOW), 1.0)
+    return max(balanced, serial) * mb_ms, balanced, serial
+
+
+def pool_gradient_check(torch, trainer, mbs, tag: str, label: str, bound: float,
+                        leaf_bound: float) -> None:
+    """The pool's combined gradient (its workers as they are) against the
+    same microbatches run by its first worker alone, within a relative L2
+    of ``bound`` over the whole tree and of ``leaf_bound`` over each leaf."""
+    g_pool, m = trainer.gradient(mbs)
+    specs = list(trainer.workers)
+    for wid in range(len(specs) - 1, 0, -1):
+        trainer.remove_worker(wid)
+    g_one, m_one = trainer.gradient(mbs)
+    for spec in specs[1:]:
+        trainer.add_worker(spec)
+    rel, worst, leaf_rel, leaf = rel_l2(torch, g_pool, g_one)
+    del g_pool, g_one
+    ok = rel <= bound and leaf_rel <= leaf_bound
+    print(f"[{tag}] {label}: the pool's combined gradient (tasks/worker "
+          f"{m['tasks_per_worker']}, steals {m['steals']}) vs one worker's "
+          f"({m_one['tasks_per_worker']}) over the same {len(mbs)} microbatches: relative L2 "
+          f"{rel:.3e} (limit {bound}), worst leaf {leaf} {leaf_rel:.3e} (limit {leaf_bound}), "
+          f"max|d| {worst:.3e} {'ok' if ok else 'FAIL'}")
+    need(rel <= bound, f"{label}: the pool's gradient is {rel} from one worker's, beyond {bound}")
+    need(leaf_rel <= leaf_bound,
+         f"{label}: the pool's gradient leaf {leaf} is {leaf_rel} from one worker's, "
+         f"beyond {leaf_bound}")
+
+
+def threads_vs_one(torch, lm, cfg, params, mbs, mb_ms: float, card: str) -> None:
+    """How far worker threads overlap: the microbatches' gradients back to
+    back on one thread, then split over len(TRAIN_SLOW) threads each on a
+    stream of its own (the pool's arrangement, without its sleeps), host
+    clock; and one microbatch's host time, from the call to its return, of
+    its time to the end of its device work.  PyTorch runs every backward
+    on one autograd thread per device, whichever thread asked for it."""
+    import threading
+
+    from repro_torch.autodiff import value_and_grad
+
+    grad = value_and_grad(lambda p, b: lm.loss_fn(p, b, cfg))
+    nw = len(TRAIN_SLOW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad(params, mbs[0])
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for mb in mbs:
+        grad(params, mb)
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    streams = [torch.cuda.Stream() for _ in range(nw)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    errors = []
+
+    def work(w: int) -> None:
+        try:
+            with torch.cuda.stream(streams[w]):
+                for mb in mbs[w::nw]:
+                    grad(params, mb)
+                streams[w].synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below, after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(w,)) for w in range(nw)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    many = time.perf_counter() - t0
+    need(not errors and not any(t.is_alive() for t in threads), f"worker threads: {errors}")
+    print(f"[train-threads] {card}: {len(mbs)} microbatch gradients back to back on one thread "
+          f"{one:.3f} s ({1e3 * one / len(mbs):.1f} ms each; {mb_ms:.1f} ms alone on the device); "
+          f"over {nw} threads, a stream each, {many:.3f} s = {many / one:.2f}x one thread; one "
+          f"microbatch's host time to return {1e3 * host:.1f} ms of {1e3 * whole:.1f} ms to its "
+          f"device work's end")
+
+
+def train_phases(torch, np, gen, dev) -> None:
+    """Phases 17-18: phi4-mini-3.8b trained at full width on ``dev`` through
+    HetDPTrainer, after the serving models are freed."""
+    from repro_torch.autodiff import tree_leaves, value_and_grad
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import lm
+    from repro_torch.models.bridge import flatten
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.runtime.fault_tolerance import ResilientDriver
+    from repro_torch.runtime.het_dp import HetDPTrainer, WorkerSpec
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_name()
+    print(f"[train] {card}; memory_allocated {_gb(torch.cuda.memory_allocated())} "
+          f"(the serving models freed)")
+    full = get_config(TRAIN_ARCH)
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+
+    def workers():
+        return [WorkerSpec(f"w{i}", slow_factor=f) for i, f in enumerate(TRAIN_SLOW)]
+
+    def pace(cfg, params, mbs) -> float:
+        """ms of one microbatch's gradient alone on the default stream."""
+        grad = value_and_grad(lambda p, b: lm.loss_fn(p, b, cfg))
+        return timed_ms(torch, lambda: grad(params, mbs[0]), iters=2, warmup=1)
+
+    # 17. train-check: (a) the gradient's exactness in f32 --------------------
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = full.with_(n_layers=TRAIN_F32_LAYERS, dtype="float32")
+    p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(1), device=dev,
+                  dtype=torch.float32)
+    mbs = train_microbatches(torch, cfg32, dev, 0)
+    ms32 = pace(cfg32, p32, mbs)
+    tr = HetDPTrainer(lambda p, b: lm.loss_fn(p, b, cfg32), p32, workers(),
+                      base_task_time=TRAIN_PACE * ms32 / 1e3)
+    pool_gradient_check(torch, tr, mbs, "train-check",
+                        f"f32, full width, {TRAIN_F32_LAYERS} layers", TRAIN_F32_REL_L2,
+                        TRAIN_F32_REL_L2)
+    del tr, p32, mbs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train-check] f32: one microbatch {ms32:.2f} ms alone ({card}); "
+          f"max_memory_allocated {_gb(torch.cuda.max_memory_allocated())}")
+
+    # 18. train-main: 16 layers in bf16 through the pool ----------------------
+    torch.cuda.reset_peak_memory_stats()
+    cfg = full.with_(n_layers=TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    leaves = flatten(params)
+    n_params = sum(t.numel() for t in leaves.values())
+    need(n_params == cfg.param_count(), f"{n_params} parameters, expected {cfg.param_count()}")
+    print(f"[train] {TRAIN_ARCH} at full width, {TRAIN_LAYERS} of {full.n_layers} layers, "
+          f"remat {cfg.remat!r}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (untied); {n_params:,} "
+          f"parameters, {_gb(2 * n_params)} in bf16, drawn in {time.perf_counter() - t0:.2f} s")
+    mbs = train_microbatches(torch, cfg, dev, 0)
+    mb_ms = pace(cfg, params, mbs)
+    mb_bytes, mb_flops = microbatch_work(cfg, leaves, tokens)
+    mb_bound, mb_by = bound(mb_bytes, mb_flops)
+    print(f"[train-time] {card}: one microbatch ({TRAIN_ROWS} x {TRAIN_SEQ} tokens; forward, "
+          f"recompute, backward) {mb_ms:.2f} ms alone, CUDA events; bound {mb_bound:.2f} ms "
+          f"({mb_flops:.3e} flop at 989 TFLOP/s bf16, {_gb(mb_bytes)}; {mb_by}-bound) = "
+          f"{mb_bound / mb_ms:.1%} of it")
+    tr = HetDPTrainer(lambda p, b: lm.loss_fn(p, b, cfg), params, workers(),
+                      base_task_time=TRAIN_PACE * mb_ms / 1e3)
+    del params
+    # (b) the same comparison in bf16, reported
+    pool_gradient_check(torch, tr, mbs, "train-check", f"bf16, {TRAIN_LAYERS} layers",
+                        TRAIN_BF16_REL_L2, TRAIN_BF16_LEAF_REL_L2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {k: t.reshape(-1)[:4096].float().cpu() for k, t in flatten(tr.params).items()}
+    floor_ms, balanced, serial = paced_floor_ms(mb_ms)
+    steals = 0
+    for step in range(TRAIN_STEPS):
+        mbs = train_microbatches(torch, cfg, dev, step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step(mbs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steals += m["steals"]
+        print(f"[train-main] {card}: step {step}: loss {m['loss']:.4f}, grad_norm "
+              f"{m['grad_norm']:.4f}, tasks/worker {m['tasks_per_worker']} (slowdowns "
+              f"{list(TRAIN_SLOW)}), steals {m['steals']}, makespan {m['makespan']:.3f} s "
+              f"(wall with the combine and the update {wall:.3f} s); the paced schedule's "
+              f"floor {floor_ms / 1e3:.3f} s = {floor_ms / mb_ms:.2f} microbatches of "
+              f"{mb_ms:.2f} ms (each task sleeps {TRAIN_PACE:g} microbatch times its slowdown: "
+              f"balanced over the workers {balanced:.2f}, the card running the "
+              f"{TRAIN_TASKS} one after another and the last one's sleep {serial:.2f})")
+        need(math.isfinite(m["loss"]), f"step {step}: loss {m['loss']}")
+        need(m["grad_norm"] > 0 and math.isfinite(m["grad_norm"]),
+             f"step {step}: grad_norm {m['grad_norm']}")
+        need(sum(m["tasks_per_worker"]) == TRAIN_TASKS and not m["failed_workers"],
+             f"step {step}: tasks/worker {m['tasks_per_worker']}")
+    moved = [k for k, t in flatten(tr.params).items()
+             if not torch.equal(t.reshape(-1)[:4096].float().cpu(), before[k])]
+    print(f"[train-main] {len(moved)} of {len(before)} parameter leaves moved; steals in "
+          f"{TRAIN_STEPS} steps {steals}; max_memory_allocated "
+          f"{_gb(torch.cuda.max_memory_allocated())} ({card})")
+    need(len(moved) == len(before), f"leaves that did not move: {sorted(set(before) - set(moved))}")
+    need(steals >= 1, f"no steal in {TRAIN_STEPS} steps")
+    # AdamW alone, on one more combined gradient: the update writes into the
+    # trainer's parameters and moments, which are not read for checks again
+    grads, _ = tr.gradient(mbs)
+    u_bytes = adamw_bytes(tr.params, grads, tr.opt_state)
+    u_ms = timed_ms(torch, lambda: adamw_update(grads, tr.opt_state, tr.params, tr.opt_cfg),
+                    iters=3, warmup=1)
+    del grads
+    u_bound = u_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[train-time] {card}: adamw_update {u_ms:.2f} ms, bound {u_bound:.2f} ms "
+          f"({_gb(u_bytes)} at 3.35 TB/s) = {u_bound / u_ms:.1%} of it; a step's work at the "
+          f"card's peak rates, without the pacing: {TRAIN_TASKS} microbatches and the update "
+          f"{TRAIN_TASKS * mb_bound + u_bound:.1f} ms against {TRAIN_TASKS * mb_ms + u_ms:.1f} "
+          f"ms measured alone")
+    threads_vs_one(torch, lm, cfg, tr.params, mbs, mb_ms, card)
+    del tr, mbs, before, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the ResilientDriver at SMOKE size: a worker fails, is removed, and a
+    # fresh trainer resumes from the last checkpoint
+    smoke = get_smoke(TRAIN_ARCH)
+
+    def smoke_trainer(seed: int, specs):
+        params = lm.init(smoke, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        return HetDPTrainer(lambda p, b: lm.loss_fn(p, b, smoke), params, specs,
+                            AdamWConfig(lr=1e-3), base_task_time=0.002)
+
+    def smoke_mbs(step: int):
+        r = np.random.default_rng(step)
+        toks = torch.from_numpy(r.integers(0, smoke.vocab, (TRAIN_TASKS, 2, 33))).to(dev)
+        return [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        tr = smoke_trainer(0, [WorkerSpec("a"), WorkerSpec("b", slow_factor=4.0),
+                               WorkerSpec("dies", fail_at_step=2)])
+        report = ResilientDriver(tr, smoke_mbs, ckpt, ckpt_every=2).run(DRIVER_STEPS)
+        fresh = smoke_trainer(1, [WorkerSpec("c")])
+        again = ResilientDriver(fresh, smoke_mbs, ckpt, ckpt_every=2)
+        resumed = again._maybe_restore()
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(fresh.params),
+                                                     tree_leaves(tr.params)))
+        more = again.run(DRIVER_STEPS + 2)
+    print(f"[train-driver] SMOKE {TRAIN_ARCH}: {report.steps_run} steps, removed "
+          f"{report.removed_workers}, restarts {report.restarts}, final loss "
+          f"{report.final_loss:.4f}; a fresh trainer resumed at step {resumed} with the saved "
+          f"parameters ({same}) and ran {more.steps_run} more, final loss {more.final_loss:.4f}")
+    need(report.steps_run == DRIVER_STEPS and report.removed_workers == ["dies"],
+         f"driver: {report}")
+    need(resumed == DRIVER_STEPS and same and more.steps_run == 2, "driver: resume failed")
+    need(math.isfinite(report.final_loss) and math.isfinite(more.final_loss), "driver: loss")
 
 
 def encdec_times(torch, np, lm, cfg, params, leaves, dev, gen, enc, tag: str) -> None:

@@ -1,0 +1,4 @@
+from . import store
+from .store import AsyncCheckpointer, latest_step, restore, save
+
+__all__ = ["store", "AsyncCheckpointer", "latest_step", "restore", "save"]

@@ -1,0 +1,3 @@
+from .pipeline import DataConfig, Prefetcher, SyntheticLM
+
+__all__ = ["DataConfig", "Prefetcher", "SyntheticLM"]

@@ -13,15 +13,18 @@ a Python loop over views of the stack.
 Public entry points (functions over plain nested dicts of tensors):
   init(cfg, generator)          -> params
   forward(params, batch, cfg)   -> (logits [B, S, vocab_padded] f32, aux loss)
+  loss_fn(params, batch, cfg)   -> (scalar loss, metrics), differentiable
   prefill(params, batch, cfg)   -> (last-position logits, caches)
   decode_step(params, tok, caches, pos, cfg) -> (logits, caches)
   init_caches / pad_caches / param_count
 
 ``decode_step`` writes each new K/V row, and each new recurrent state, into
-``caches`` in place; the caller owns them (one set per request).  ``init``
-builds the multi-token-prediction module's parameters (``tree["mtp"]``,
-DeepSeek-V3); ``loss_fn`` and the MTP
-forward come with the port's training slice.
+``caches`` in place; the caller owns them (one set per request).  The
+training path (``forward`` and ``loss_fn``) writes nothing in place, so that
+``torch.autograd`` differentiates it; each layer's body runs under the
+rematerialisation ``cfg.remat`` names (:func:`_remat`), as the reference's
+scan body does.  ``init`` builds the multi-token-prediction module's
+parameters (``tree["mtp"]``, DeepSeek-V3), which ``loss_fn`` trains.
 
 A batch holds ``tokens`` [B, S], or ``embeds`` [B, S, d] for a model with a
 frontend stub (qwen2-vl's patch embeddings), and ``positions``: [B, S], or
@@ -34,11 +37,17 @@ layer's memory K/V: :func:`init_caches` leaves that slot ``None``.
 
 from __future__ import annotations
 
+import functools
 import operator
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 
@@ -50,6 +59,7 @@ from .layers import param, rms_norm, softcap
 __all__ = [
     "init",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "init_caches",
@@ -151,27 +161,64 @@ def init(
     return tree
 
 
+# Products without batch dimensions, the weight matmuls: what the reference's
+# ``dots_with_no_batch_dims_saveable`` policy keeps under ``remat="dots"``.
+# Attention's and the experts' batched products (``bmm``) are recomputed.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: ``"none"`` keeps every activation,
+    ``"full"`` keeps the inputs and recomputes the rest in backward,
+    ``"dots"`` keeps the weight matmuls' outputs too (the reference's
+    ``jax.checkpoint`` policies)."""
+    if cfg.remat == "none":
+        return fn
+    kw: dict[str, Any] = {"use_reentrant": False, "preserve_rng_state": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def _layer(x, layer_p, *, kinds, cfg: ModelConfig, aux, want_cache: bool):
+    """One layer of a group: its blocks in order.  Returns (x, aux loss, caches)."""
+    cs = []
+    a_sum = 0.0
+    for i, k in enumerate(kinds):
+        x, a, c = blk.block_apply(
+            layer_p[f"b{i}"], x, kind=k, cfg=cfg, aux=aux, want_cache=want_cache,
+        )
+        a_sum = a_sum + a
+        cs.append(c)
+    return x, a_sum, tuple(cs)
+
+
 def _run_groups(params_groups, x, cfg: ModelConfig, aux, groups, want_cache=False):
     """Apply every layer group; returns (x, aux_loss_sum, caches|None).
 
     The aux loss is summed as the reference sums it: over a layer's blocks,
-    then over the group's layers, then over the groups."""
+    then over the group's layers, then over the groups.  Without caches each
+    layer runs under :func:`_remat`; a serving call (``want_cache``) keeps
+    its activations, which no backward reads."""
     aux_total = 0.0
     caches = []
     for gp, (kind, count) in zip(params_groups, groups):
-        kinds = _group_kinds(kind)
+        # bound now: backward may recompute a layer after the loop moved on
+        body = functools.partial(_layer, kinds=_group_kinds(kind), cfg=cfg, aux=aux,
+                                 want_cache=want_cache)
+        if not want_cache:
+            body = _remat(body, cfg)
         per_layer = []
         layer_aux = []
         for layer_p in _unstack(gp, count):
-            cs = []
-            a_sum = 0.0
-            for i, k in enumerate(kinds):
-                x, a, c = blk.block_apply(
-                    layer_p[f"b{i}"], x, kind=k, cfg=cfg, aux=aux, want_cache=want_cache,
-                )
-                a_sum = a_sum + a
-                cs.append(c)
-            per_layer.append(tuple(cs))
+            x, a_sum, cs = body(x, layer_p)
+            per_layer.append(cs)
             layer_aux.append(a_sum)
         if torch.is_tensor(layer_aux[0]):  # a group of MoE blocks
             aux_total = aux_total + torch.stack(layer_aux).sum()
@@ -194,8 +241,9 @@ def _logits(params, x, cfg: ModelConfig):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = softcap((x @ head.to(x.dtype)).float(), cfg.logits_softcap)
-    if cfg.vocab_padded != cfg.vocab:
-        logits[..., cfg.vocab :] = -2.0e38
+    if cfg.vocab_padded != cfg.vocab:  # out of place: autograd reads the product
+        keep = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
+        logits = torch.where(keep, logits, -2.0e38)
     return logits
 
 
@@ -242,6 +290,97 @@ def forward(params, batch, cfg: ModelConfig, chunk: int = 1024):
     x = _decoder_input(params, batch, cfg)
     x, aux_loss, _ = _run_groups(params["groups"], x, cfg, aux, _decoder_groups(cfg))
     return _logits(params, x, cfg), aux_loss
+
+
+def _mtp_trunk(params, h, batch, cfg: ModelConfig, aux):
+    """DeepSeek-V3 MTP (depth 1): predict token t+2 from (h_t, emb_{t+1}).
+
+    ``h`` is the trunk output BEFORE the final norm, [B, S, d].  Returns the
+    MTP hidden states [B, S-1, d] (logits via the shared streamed CE head);
+    the block's own aux loss is dropped, as the reference drops it.
+    """
+    p = params["mtp"]
+    emb = _embed_tokens(params, batch["tokens"], cfg)
+    hh = rms_norm(h[:, :-1], p["norm_h"], cfg.norm_eps)
+    ee = rms_norm(emb[:, 1:], p["norm_e"], cfg.norm_eps)
+    x = torch.cat([hh, ee], dim=-1) @ p["proj"].to(hh.dtype)
+    aux_m = dict(aux, positions=aux["positions"][..., :-1])
+    x, _, _ = blk.block_apply(p["block"], x, kind=cfg.block_types()[-1], cfg=cfg, aux=aux_m)
+    return x
+
+
+def _ce(logits, labels, mask):
+    """Mean next-token cross-entropy over the ``mask``ed positions."""
+    ll = torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None].long())[..., 0]
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _num_ce_chunks(cfg: ModelConfig, seq: int) -> int:
+    """Resolved chunk count: a divisor of ``seq`` near the target."""
+    want = cfg.ce_chunks
+    if want == 0:  # auto: ~16M logits elements per chunk
+        want = max(1, (seq * cfg.vocab_padded) // (1 << 24))
+    want = min(want, seq)
+    for nc in range(want, 0, -1):
+        if seq % nc == 0:
+            return nc
+    return 1
+
+
+def _ce_chunk(params, h_c, l_c, m_c, cfg: ModelConfig):
+    """(masked negative log-likelihood sum, mask sum) of one sequence chunk."""
+    logp = torch.log_softmax(_logits(params, h_c, cfg), dim=-1)
+    ll = logp.gather(-1, l_c[..., None].long())[..., 0]
+    return (ll * m_c).sum(), m_c.sum()
+
+
+def _ce_stream(params, h, labels, mask, cfg: ModelConfig):
+    """Streaming cross-entropy over sequence chunks, as the reference's.
+
+    The head matmul + log-softmax + gather run one [B, S/nc] slab at a time,
+    each under a checkpoint that keeps only its inputs, so the [B, S, vocab]
+    f32 logits never exist: backward recomputes one slab's at a time.  The
+    chunks' sums are taken in the reference's scan order.
+    """
+    nc = _num_ce_chunks(cfg, h.shape[1])
+    if nc <= 1:
+        return _ce(_logits(params, h, cfg), labels, mask)
+    sc = h.shape[1] // nc
+    nll = msum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nc):
+        part = slice(c * sc, (c + 1) * sc)
+        ll, m = checkpoint(_ce_chunk, params, h[:, part], labels[:, part], mask[:, part], cfg,
+                           use_reentrant=False, preserve_rng_state=False)
+        nll, msum = nll - ll, msum + m
+    return nll / torch.clamp(msum, min=1.0)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, chunk: int = 1024):
+    """(loss, metrics) of a training batch: ``tokens`` (or ``embeds``, or an
+    enc-dec model's ``enc_embeds`` beside its ``tokens``), ``labels`` [B, S]
+    and an optional f32 ``loss_mask``.  The loss is the streamed
+    cross-entropy plus the MoE aux loss, plus ``cfg.mtp_weight`` times the
+    MTP cross-entropy where the model has the module; ``metrics`` holds
+    ``ce``, ``aux``, ``tokens`` (the mask's sum) and ``ce_mtp``."""
+    aux = _make_aux(batch, cfg, chunk)
+    if cfg.enc_layers:
+        aux["memory"] = _encode(params, batch, cfg, aux)
+    x = _decoder_input(params, batch, cfg)
+    h, aux_loss, _ = _run_groups(params["groups"], x, cfg, aux, _decoder_groups(cfg))
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    aux_loss = torch.as_tensor(aux_loss, dtype=torch.float32, device=h.device)
+    ce = _ce_stream(params, h, labels, mask, cfg)
+    loss = ce + aux_loss
+    metrics = {"ce": ce, "aux": aux_loss, "tokens": mask.sum()}
+    if cfg.mtp and "tokens" in batch:
+        h_mtp = _mtp_trunk(params, h, batch, cfg, aux)
+        ce_mtp = _ce_stream(params, h_mtp, labels[:, 1:], mask[:, 1:], cfg)
+        loss = loss + cfg.mtp_weight * ce_mtp
+        metrics["ce_mtp"] = ce_mtp
+    return loss, metrics
 
 
 # ------------------------------------------------------------------- serving

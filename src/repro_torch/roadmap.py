@@ -8,6 +8,7 @@ __all__ = ["not_ported"]
 
 _ROADMAP_ITEM = {
     "sharded serving": "queue item 6, input_specs and sharded serving",
+    "sharded training": "queue item 6, input_specs and sharded serving",
 }
 
 

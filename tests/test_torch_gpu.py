@@ -1,7 +1,8 @@
 """The port on the card: its CUDA kernel against its plain PyTorch version,
 the serving path's SMOKE models (dense, MoE, MLA, Mamba-2, RG-LRU with local
-attention, enc-dec, VLM) against the same models on the CPU, and the device scheduler's
-run on the card against its run on the CPU.
+attention, enc-dec, VLM) against the same models on the CPU, a SMOKE
+training step and a HetDPTrainer gradient on the card against the CPU's, and
+the device scheduler's run on the card against its run on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
 ``torch.cuda.is_available()`` is false; the decision is taken inside the
@@ -22,12 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.autodiff import tree_leaves, tree_map, value_and_grad
 from repro_torch.configs import get_smoke
 from repro_torch.core import A2WSRuntime
 from repro_torch.core.device_sched import virtual_run
 from repro_torch.launch.serve import make_replica_generate
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_mod
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.runtime.het_dp import HetDPTrainer, WorkerSpec
+from repro_torch.train.step import make_train_step
 from repro_torch.serve import Replica, ServePool
 from repro_torch.kernels.fd3d import fd3d as tkernel
 from repro_torch.kernels.fd3d import fd3d_step, ref
@@ -351,3 +356,64 @@ def test_device_sched_on_card_matches_cpu(cuda, packed):
     for name in ("queue", "head", "tail", "executed"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
     assert int(got.executed.sum()) == 64 * 30
+
+
+def _rel_l2(got, want) -> float:
+    """Relative L2 distance between two gradient trees (leaves in f32)."""
+    num = sum(float(((g.float().cpu() - w.float().cpu()) ** 2).sum())
+              for g, w in zip(tree_leaves(got), tree_leaves(want)))
+    den = sum(float((w.float().cpu() ** 2).sum()) for w in tree_leaves(want))
+    return (num / den) ** 0.5
+
+
+def _train_batch(cfg, b=2, s=12, seed=0):
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (b, s + 1)))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """phi4 SMOKE in f32 under full remat, the same weights on the card and
+    on the CPU: the loss and every gradient leaf within 1e-4, and the
+    parameters after one make_train_step within 1e-5 (f32 products in full
+    f32 on both; only the summation order differs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke("phi4-mini-3.8b").with_(dtype="float32", remat="full")
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    card = _to(cpu, cuda)
+    batch = _train_batch(cfg)
+    grad = value_and_grad(lambda p, b: lm.loss_fn(p, b, cfg))
+    (wl, _), wg = grad(cpu, batch)
+    (gl, _), gg = grad(card, _to(batch, cuda))
+    torch.testing.assert_close(gl.cpu(), wl, atol=1e-4, rtol=1e-4)
+    for g, w in zip(tree_leaves(gg), tree_leaves(wg)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+    opt = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt)  # updates in place: give each step a copy
+    cpu, card = tree_map(torch.clone, cpu), tree_map(torch.clone, card)
+    wp, _, wm = step(cpu, adamw_init(cpu, opt), batch)
+    gp, _, gm = step(card, adamw_init(card, opt), _to(batch, cuda))
+    torch.testing.assert_close(gm["grad_norm"].cpu(), wm["grad_norm"], atol=1e-4, rtol=1e-4)
+    for g, w in zip(tree_leaves(gp), tree_leaves(wp)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-5)
+
+
+def test_het_dp_on_card_streams_matches_cpu(cuda):
+    """HetDPTrainer on the card, 3 workers (one 4x slow) each on its own
+    stream: the combined gradient of 6 microbatches equals the mean of the
+    CPU's per-microbatch gradients within a relative L2 of 1e-5, and a step
+    runs every microbatch once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke("phi4-mini-3.8b").with_(dtype="float32", remat="full")
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    mbs = [_train_batch(cfg, seed=i) for i in range(6)]
+    loss = lambda p, b: lm.loss_fn(p, b, cfg)  # noqa: E731
+    grad = value_and_grad(loss)
+    want = tree_map(lambda *gs: sum(gs[1:], gs[0]) / 6, *[grad(cpu, mb)[1] for mb in mbs])
+    tr = HetDPTrainer(loss, _to(cpu, cuda),
+                      [WorkerSpec("a"), WorkerSpec("b"), WorkerSpec("slow", slow_factor=4.0)],
+                      base_task_time=0.01)
+    got, m = tr.gradient([_to(mb, cuda) for mb in mbs])
+    assert sum(m["tasks_per_worker"]) == 6
+    assert _rel_l2(got, want) <= 1e-5
+    out = tr.step([_to(mb, cuda) for mb in mbs])
+    assert sum(out["tasks_per_worker"]) == 6 and out["grad_norm"] > 0

@@ -182,7 +182,8 @@ def test_port_runs_with_jax_and_reference_blocked():
     SMOKE models (moonshot, deepseek with MLA) and the recurrent ones
     (mamba2, recurrentgemma), prefills and decodes the enc-dec and VLM
     SMOKE models (seamless, qwen2-vl), runs the device scheduler at
-    P=8 on the CPU and one simulation."""
+    P=8 on the CPU and one simulation, and trains a SMOKE model: one
+    ``make_train_step`` step and one ``HetDPTrainer`` step over 2 workers."""
     code = textwrap.dedent(
         """
         import sys
@@ -236,6 +237,20 @@ def test_port_runs_with_jax_and_reference_blocked():
         res = simulator.simulate("a2ws", simulator.SimConfig(
             speeds=simulator.table2_speeds("C1"), num_tasks=48))
         assert sum(res.per_node_tasks) == 48
+        import repro_torch.checkpoint, repro_torch.data, repro_torch.runtime
+        from repro_torch.optim.adamw import AdamWConfig, adamw_init
+        from repro_torch.runtime import HetDPTrainer, WorkerSpec
+        from repro_torch.train.step import make_train_step
+        cfg = repro_torch.configs.get_smoke("phi4-mini-3.8b")
+        params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 9), generator=torch.Generator().manual_seed(1))
+        mb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        opt = AdamWConfig(lr=1e-3)
+        _, _, m = make_train_step(cfg, opt)(params, adamw_init(params, opt), mb)
+        assert bool(m["loss"].isfinite()) and float(m["grad_norm"]) > 0
+        tr = HetDPTrainer(lambda p, b: lm.loss_fn(p, b, cfg), params,
+                          [WorkerSpec("a"), WorkerSpec("b")], opt)
+        assert sum(tr.step([mb, mb])["tasks_per_worker"]) == 2
         bad = [k for k, v in sys.modules.items() if v is not None
                and (k in ("jax", "repro") or k.startswith(("jax.", "repro.")))]
         assert not bad, bad

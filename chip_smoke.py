@@ -114,6 +114,20 @@ Phases (each prints its lines; any failure exits non-zero):
             moved; peak memory; then a ResilientDriver run at SMOKE size whose
             failing worker is removed, and a fresh trainer that resumes from
             its checkpoint.
+19. shard   phi4-mini-3.8b at full width and depth, served through the
+            sharded step makers (``jit_prefill_step``, ``jit_decode_step``
+            with the serving layout) on a one-rank ``nccl`` mesh (1, 1)
+            ("data", "model"), its parameters phases 7-9's own wrapped as
+            DTensors without a copy: a PROMPT-token prefill, then NEW_TOKENS
+            decode steps, at batch 1 and 8, each step's logits against the
+            unsharded port's within phase 7's bf16 bounds (and whether they
+            are bit-equal); decode ms per step beside the unsharded step's,
+            the host's enqueue time and the bytes bound; peak memory.  Run
+            at the end of phases 7-9, while their parameters live;
+20. shard   deepseek-v3-671b at full width and MLA_LAYERS layers, phase
+            12's parameters, the same through ``serve_context``'s full-EP
+            layout (``moe_apply`` under ``local_map``), the unsharded run's
+            routing replayed, at the MoE bounds.  Run at the end of phase 12.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -493,6 +507,10 @@ def run() -> dict:
         print(f"[clock] {what}: {time.perf_counter() - t_start:.1f} s since the start")
         phase()
     print(f"[clock] the end of the phases: {time.perf_counter() - t_start:.1f} s since the start")
+    if _MESH:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
     print(json.dumps({"kernels": [{
         "name": "fd3d_step",
@@ -682,6 +700,147 @@ def serve_phases(torch, np, gen, dev) -> None:
     rng = np.random.default_rng(0)
     pool_phase(torch, np, lm, cfg, params, dev, token_requests(rng, cfg, POOL_REQUESTS, PROMPT),
                NEW_TOKENS, rng, "serve")
+    # 19. shard -----------------------------------------------------------
+    sharded_phase(torch, lm, cfg, params, dev, gen, "shard-19",
+                  (BF16_LOGIT_ATOL, 0.0, BF16_LOGIT_REL_L2, True))
+
+
+_MESH = []  # the one-rank mesh of phases 19-20, made once
+
+
+def one_rank_mesh(torch, dev):
+    """A (1, 1) ("data", "model") mesh over a one-rank process group of its
+    own store (``nccl`` on the card, ``gloo`` on the host)."""
+    import torch.distributed as dist
+
+    if not _MESH:
+        from repro_torch.launch.mesh import make_debug_mesh
+
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)  # the rank's card, before NCCL starts
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+        _MESH.append(make_debug_mesh(1, 1))
+    return _MESH[0]
+
+
+@contextlib.contextmanager
+def replay_on_mesh(pin, rows):
+    """``pin.replay(rows)`` for a model whose routing runs on DTensors: the
+    recorded decisions go back in as DTensors of the mesh's (one-rank)
+    layout, and the flips are counted on whole tensors."""
+    from torch.distributed.tensor import DTensor
+
+    layers = iter(pin.tape)
+
+    def replay(router_w, x, m):
+        top_i, top_w, probs = pin.route(router_w, x, m)
+        pin_i, pin_w = (t[:, rows] for t in next(layers))
+        own = top_i.full_tensor() if isinstance(top_i, DTensor) else top_i
+        pin.flips += int((own.sort(-1).values != pin_i.sort(-1).values).any(-1).sum())
+        pin.decisions += own.shape[0] * own.shape[1]
+        if isinstance(top_i, DTensor):
+            pin_i = DTensor.from_local(pin_i, top_i.device_mesh, top_i.placements)
+            pin_w = DTensor.from_local(pin_w, top_w.device_mesh, top_w.placements)
+        return pin_i, pin_w, probs
+
+    with pin._routing(replay):
+        yield
+
+
+def sharded_phase(torch, lm, cfg, params, dev, gen, tag: str, tols, pin=None) -> None:
+    """Phases 19-20: ``cfg`` served through the sharded step makers on a
+    one-rank mesh, ``params`` wrapped as DTensors in place, against the
+    unsharded port on the same prompts (see the module docstring)."""
+    from repro_torch.models.bridge import flatten
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.serve import engine
+
+    card = card_name()
+    mesh = one_rank_mesh(torch, dev)
+    ctx = sh.serve_context(mesh, cfg.moe.num_experts if cfg.moe else 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dparams = sh.distribute_tree(params, engine._param_shardings(cfg, ctx))
+    wrap_s = time.perf_counter() - t0
+    plain, wrapped = flatten(params), flatten(dparams)
+    need(all(wrapped[k].to_local().data_ptr() == t.data_ptr() for k, t in plain.items()),
+         f"{tag}: wrapping the parameters as DTensors copied one")
+    atol, rtol, rel, argmax = tols
+    total = PROMPT + NEW_TOKENS
+    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, on a one-rank mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({card}), experts over {ctx.ep_axes}: "
+          f"{len(plain)} parameter leaves wrapped as DTensors in {wrap_s * 1e3:.1f} ms, no copy")
+    for bsz in (1, 8):
+        toks = torch.randint(0, cfg.vocab, (bsz, total), device=dev, generator=gen)
+        prompt = {"tokens": toks[:, :PROMPT]}
+        prefill = engine.jit_prefill_step(cfg, ctx, prompt)
+        decode = engine.jit_decode_step(cfg, ctx, bsz, total)
+        steps, equal = [], True
+
+        def both(plain_fn, sharded_fn, rows):
+            if pin is None:
+                return plain_fn(), sharded_fn()
+            with pin.record():
+                want = plain_fn()
+            with replay_on_mesh(pin, rows):
+                return want, sharded_fn()
+
+        (wl, wc), (gl, sc) = both(lambda: lm.prefill(params, prompt, cfg),
+                                  lambda: prefill(dparams, prompt), slice(None))
+        steps.append(("prefill", gl.full_tensor(), wl))
+        wc, sc = lm.pad_caches(wc, cfg, total), lm.pad_caches(sc, cfg, total)
+        for i in range(NEW_TOKENS):
+            tok = toks[:, PROMPT + i:PROMPT + i + 1]
+            (wl, wc), (gl, sc) = both(lambda: lm.decode_step(params, tok, wc, PROMPT + i, cfg),
+                                      lambda: decode(dparams, tok, sc, PROMPT + i), slice(None))
+            steps.append((f"decode {i}", gl.full_tensor(), wl))
+        for what, got, want in steps:
+            equal = equal and torch.equal(got, want)
+        worst = max(steps, key=lambda s: (s[1] - s[2])[..., :cfg.vocab].abs().max().item())
+        compare_logits(torch, worst[1], worst[2], atol, rtol, rel, cfg.vocab,
+                       f"{tag} batch {bsz}: sharded vs unsharded, worst of prefill + "
+                       f"{NEW_TOKENS} decode steps ({worst[0]})", argmax)
+        for what, got, want in steps:
+            need(torch.allclose(got[..., :cfg.vocab], want[..., :cfg.vocab], atol=atol, rtol=rtol),
+                 f"{tag} batch {bsz} {what}: sharded logits beyond atol {atol}")
+        print(f"[{tag}] batch {bsz}: prefill + {NEW_TOKENS} decode steps' logits bit-equal to "
+              f"the unsharded port's: {equal}" + (
+                  f"; routing replayed, {pin.flips} of {pin.decisions} token-layer decisions "
+                  f"would have flipped" if pin is not None else ""))
+        del wc, sc, steps
+        # decode ms per step, sharded and not, against a DECODE_CACHE-token cache
+        caches = lm.init_caches(cfg, bsz, DECODE_CACHE, device=dev)
+        dcaches = engine.cache_shardings(cfg, ctx, bsz, DECODE_CACHE)
+        dcaches = sh.distribute_tree(lm.init_caches(cfg, bsz, DECODE_CACHE, device=dev), dcaches)
+        dec_time = engine.jit_decode_step(cfg, ctx, bsz, DECODE_CACHE)
+        tok = toks[:, :1]
+        times = {}
+        for name, fn, cache in (("unsharded", lambda c, p: lm.decode_step(params, tok, c, p, cfg),
+                                 caches),
+                                ("sharded", lambda c, p: dec_time(dparams, tok, c, p), dcaches)):
+            pos, host = iter(range(PROMPT, DECODE_CACHE)), []
+
+            def step():
+                t = time.perf_counter()
+                fn(cache, next(pos))
+                host.append(time.perf_counter() - t)
+
+            times[name] = (timed_ms(torch, step, iters=16, warmup=4),
+                           1e3 * sum(host[4:]) / len(host[4:]))
+        nbytes, flops = step_work(lm, cfg, plain, bsz, 1, DECODE_CACHE - 1, cfg.moe is not None)
+        bms, by = bound(nbytes, flops)
+        (s_ms, s_host), (u_ms, u_host) = times["sharded"], times["unsharded"]
+        print(f"[{tag}] decode batch {bsz}, {DECODE_CACHE}-token cache ({card}): sharded "
+              f"{s_ms:.4f} ms per step (host enqueue {s_host:.4f} ms), unsharded {u_ms:.4f} ms "
+              f"(host enqueue {u_host:.4f} ms), {s_ms / u_ms:.2f}x; bound {bms:.4f} ms "
+              f"({_gb(nbytes)} at 3.35 TB/s, {by}-bound)")
+        del caches, dcaches
+    print(f"[{tag}] max_memory_allocated {_gb(torch.cuda.max_memory_allocated())} ({card})")
+    del dparams, wrapped
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def step_work(lm, cfg, leaves, bsz: int, seq: int, ctx: int, active: bool, enc_len: int = 0):
@@ -1041,6 +1200,10 @@ def moe_phases(torch, np, gen, dev) -> None:
             pool_phase(torch, np, lm, cfg, params, dev,
                        token_requests(rng, cfg, MOE_POOL_REQUESTS, MOE_PROMPT),
                        MOE_NEW_TOKENS, rng, tag)
+        else:  # 20. shard: deepseek through the full-EP layout
+            sharded_phase(torch, lm, no_drop, params, dev, gen, "shard-20",
+                          (MOE_BF16_LOGIT_ATOL, 0.0, MOE_BF16_LOGIT_REL_L2, False),
+                          pin=PinnedRouting())
         print(f"[{tag}] max_memory_allocated {_gb(torch.cuda.max_memory_allocated())}")
         del params
     gc.collect()

@@ -10,6 +10,8 @@ model families), ``serve`` (step makers and the ``ServePool`` host plane),
 ``checkpoint`` (the reference's on-disk format), ``data`` (the synthetic
 pipeline, copied verbatim), ``runtime`` (the A2WS heterogeneous-DP trainer,
 compression, the resilient driver), ``train`` (the step) and
-``launch.train``.  Imports ``torch`` and ``numpy``, never ``jax`` nor
-anything under ``repro``.
+``launch.train``; ``parallel`` (the sharding rules as DTensor placements,
+collectives for ``local_map``), ``launch.mesh`` and the dry-run
+(``launch.op_analysis``, ``launch.cells``, ``launch.dryrun``).  Imports
+``torch`` and ``numpy``, never ``jax`` nor anything under ``repro``.
 """

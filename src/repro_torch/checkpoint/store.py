@@ -7,10 +7,11 @@ positions), and bf16 leaves are widened to f32, which is lossless.  So a
 checkpoint crosses between the packages in both directions: what the
 reference saves the port restores, and the reverse.  ``restore`` loads
 into the structure of a template tree, casting each leaf to the template
-leaf's dtype and moving it to its device.
-
-The reference's ``shardings`` (elastic re-sharding onto another mesh) come
-with the port's parallel slice.
+leaf's dtype and moving it to its device; with ``shardings`` (or a template
+of DTensors) each leaf is cut to this rank's piece of the current mesh,
+which is where elastic re-sharding happens: how the checkpoint was made
+does not matter.  ``save`` takes whole tensors: gather a DTensor tree
+(``full_tensor``, on every rank) before a rank writes it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.bridge import flatten
+from repro_torch.parallel.sharding import distribute, place
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer"]
 
@@ -86,17 +88,27 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str, template: Any, *, step: int | None = None):
+def restore(directory: str, template: Any, *, step: int | None = None, shardings=None):
     """Load a checkpoint into the structure of ``template`` (tensor leaves),
     each leaf cast to its template leaf's dtype and put on its device.
-    Returns (tree, step)."""
+
+    ``shardings``: optional matching tree of ``NamedSharding`` for the
+    CURRENT mesh; each leaf is laid out by it.  Without it a DTensor leaf
+    of the template keeps the template's layout.  Returns (tree, step)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    shard = flatten(shardings) if shardings is not None else {}
+    out = {}
     with np.load(path) as data:
-        out = {k: torch.from_numpy(data[k]).to(device=t.device, dtype=t.dtype)
-               for k, t in flatten(template).items()}
+        for k, t in flatten(template).items():
+            full = torch.from_numpy(data[k]).to(device=t.device, dtype=t.dtype)
+            if shard.get(k) is not None:
+                full = place(full, shard[k])
+            elif hasattr(t, "device_mesh"):  # a DTensor template leaf
+                full = distribute(full, t.device_mesh, None, t.placements)
+            out[k] = full
     return _fill(template, out), step
 
 

@@ -6,15 +6,17 @@ Every assigned architecture has one module in this package exposing
     SMOKE  : ModelConfig   -- reduced same-family config for CPU smoke tests
 
 and this module provides the registry (``get_config``/``get_smoke``), the four
-assigned LM input shapes and the applicability rules (long_500k needs
-sub-quadratic mixing).  The reference's ``input_specs`` (stand-ins for the
-multi-pod dry-run's inputs) comes with the port's dry-run machinery.
+assigned LM input shapes, the applicability rules (long_500k needs
+sub-quadratic mixing), and ``input_specs`` -- ``meta`` stand-ins for every
+model input of a (config, shape) cell, what the dry-run traces against.
 """
 
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -25,6 +27,7 @@ __all__ = [
     "get_config",
     "get_smoke",
     "shape_applicable",
+    "input_specs",
     "cells",
 ]
 
@@ -82,6 +85,42 @@ def shape_applicable(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:
             "run only for SSM/hybrid families"
         )
     return True, ""
+
+
+# --------------------------------------------------------------------- specs
+def _i32(*shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.int32, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: Shape) -> dict:
+    """``meta`` stand-ins for the batch of one (arch, shape) cell, in the
+    reference's shapes and dtypes.
+
+    train:    full-sequence batch for ``train_step``.
+    prefill:  prompt batch for ``prefill_step``.
+    decode:   one new token against a ``shape.seq_len``-token KV cache
+              (the cache itself is built by the serve engine, not here).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def emb():
+        return torch.empty((b, s, cfg.d_model), dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "vision":
+            # patch/frame embeddings from the stubbed frontend + M-RoPE ids
+            batch = {"embeds": emb(), "positions": _i32(3, b, s)}
+        elif cfg.enc_layers:
+            batch = {"enc_embeds": emb(), "tokens": _i32(b, s)}
+        else:
+            batch = {"tokens": _i32(b, s)}
+        if shape.kind == "train":
+            batch["labels"] = _i32(b, s)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": _i32(b, 1), "pos": _i32()}
+    raise ValueError(shape.kind)
 
 
 def cells(include_skipped: bool = False):

@@ -26,6 +26,14 @@ import operator
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import (
+    merge_heads,
+    over_batch_and_heads,
+    set_index,
+    split_heads,
+    split_over_sequence,
+)
+
 from .config import MLAConfig, ModelConfig
 from .layers import dense, param, rms_norm, rope
 
@@ -42,7 +50,13 @@ __all__ = [
 _NEG = -2.0e38
 
 
-def flash_attention(
+def flash_attention(q, k, v, **kwargs) -> torch.Tensor:
+    """:func:`_flash` (see there); on DTensors, per rank on its batch rows
+    and heads (``over_batch_and_heads``)."""
+    return over_batch_and_heads(_flash, q, k, v, **kwargs)
+
+
+def _flash(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Sk, Hkv, D]
     v: torch.Tensor,  # [B, Sk, Hkv, Dv]
@@ -119,9 +133,9 @@ def gqa_params(generator, cfg: ModelConfig, *, layers: int = 0, dtype, device) -
 def _qkv(p, x, cfg: ModelConfig, rope_fn):
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
+    q = split_heads(dense(x, p["wq"], p.get("bq")), h, hd)
+    k = split_heads(dense(x, p["wk"], p.get("bk")), hkv, hd)
+    v = split_heads(dense(x, p["wv"], p.get("bv")), hkv, hd)
     q = rope_fn(q)
     k = rope_fn(k)
     return q, k, v
@@ -140,7 +154,7 @@ def gqa_attend(
     """Full/windowed causal self-attention for train & prefill."""
     q, k, v = _qkv(p, x, cfg, rope_fn)
     o = flash_attention(q, k, v, causal=True, window=window, chunk=chunk)
-    y = dense(o.reshape(*x.shape[:2], -1), p["wo"])
+    y = dense(merge_heads(o), p["wo"])
     if return_cache:
         return y, (k, v)
     return y
@@ -166,9 +180,9 @@ def gqa_decode(
     pos = operator.index(pos)
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, 1, hkv, hd)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, 1, hkv, hd)
+    q = split_heads(dense(x, p["wq"], p.get("bq")), h, hd)
+    k = split_heads(dense(x, p["wk"], p.get("bk")), hkv, hd)
+    v = split_heads(dense(x, p["wv"], p.get("bv")), hkv, hd)
     q = rope_fn(q)
     k = rope_fn(k)
     ck, cv = cache
@@ -176,8 +190,8 @@ def gqa_decode(
     slot = pos % s_cache if window else pos
     if not 0 <= slot < s_cache:
         raise IndexError(f"decode position {pos} outside a cache of {s_cache}")
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    set_index(ck, 1, slot, k[:, 0].to(ck.dtype))
+    set_index(cv, 1, slot, v[:, 0].to(cv.dtype))
     kpos = torch.arange(s_cache, device=x.device)
     if window:
         # ring buffer: entry at slot j holds absolute position
@@ -186,14 +200,59 @@ def gqa_decode(
         valid = (abs_pos >= 0) & (abs_pos > pos - window)
     else:
         valid = kpos <= pos
+    if split_over_sequence(ck):
+        o = _decode_attend_split(q, ck, cv, valid)
+    else:
+        o = over_batch_and_heads(_decode_attend, q, ck, cv, valid=valid)
+    y = dense(o.reshape(b, 1, h * hd).to(x.dtype), p["wo"])
+    return y, (ck, cv)
+
+
+def _decode_attend_split(q, ck, cv, valid):
+    """:func:`_decode_attend` against a cache whose slots are split over
+    mesh axes (the layout ``cache_pspecs`` gives when the kv heads do not
+    divide 'model'): each rank attends its own slots with every head, and
+    the pieces' running max, denominator and weighted values are combined
+    across the split (a split softmax), so no rank gathers the cache."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import axis_names, shard_map_compat, spec_of
+
+    mesh = ck.device_mesh
+    names = axis_names(mesh)
+    split = tuple(names[i] for i, pl in enumerate(ck.placements) if pl.is_shard(1))
+    q_spec = (spec_of(ck)[0], None, None, None)
+
+    def local(q_l, k_l, v_l):
+        s_loc = k_l.shape[1]
+        first = coll.linear_index(mesh, split) * s_loc
+        b, _, h, hd = q_l.shape
+        hkv = k_l.shape[2]
+        qf = (q_l * (1.0 / math.sqrt(hd))).to(k_l.dtype).reshape(b, 1, hkv, h // hkv, hd)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qf.float(), k_l.float())
+        s = s.masked_fill(~valid[first:first + s_loc][None, None, None, None, :], _NEG)
+        m = coll.all_reduce(s.amax(-1), mesh, split, op="max")
+        pr = torch.exp(s - m[..., None])
+        den = coll.all_reduce(pr.sum(-1), mesh, split)
+        acc = coll.all_reduce(
+            torch.einsum("bqkgc,bckv->bqkgv", pr.to(v_l.dtype).float(), v_l.float()), mesh, split)
+        return (acc / den[..., None]).reshape(b, 1, h, hd)
+
+    return shard_map_compat(local, mesh=mesh, in_specs=(q_spec, spec_of(ck), spec_of(cv)),
+                            out_specs=q_spec)(q, ck, cv)
+
+
+def _decode_attend(q, ck, cv, *, valid):
+    """One query row ``q`` [B, 1, H, hd] against the cache's K/V [B, S,
+    Hkv, hd] at the ``valid`` slots; f32 [B, 1, H, hd]."""
+    b, _, h, hd = q.shape
+    hkv = ck.shape[2]
     g = h // hkv
     qf = (q * (1.0 / math.sqrt(hd))).to(ck.dtype).reshape(b, 1, hkv, g, hd)
     s = torch.einsum("bqkgd,bckd->bqkgc", qf.float(), ck.float())
     s = s.masked_fill(~valid[None, None, None, None, :], _NEG)
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgc,bckv->bqkgv", a.to(cv.dtype).float(), cv.float())
-    y = dense(o.reshape(b, 1, h * hd).to(x.dtype), p["wo"])
-    return y, (ck, cv)
+    return o.reshape(b, 1, h, hd)
 
 
 # ------------------------------------------------------------------------ MLA
@@ -219,7 +278,7 @@ def _mla_q(p, x, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     qk = m.qk_nope_dim + m.qk_rope_dim
     q = dense(rms_norm(dense(x, p["w_dq"]), p["q_norm"], cfg.norm_eps), p["w_uq"])
-    q = q.reshape(b, s, cfg.n_heads, qk)
+    q = split_heads(q, cfg.n_heads, qk)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
     return q_nope, rope(q_rope, positions, cfg.rope_theta)
 
@@ -249,12 +308,12 @@ def mla_attend(
     h = cfg.n_heads
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c, k_rope = _mla_ckv(p, x, cfg, positions)
-    k_nope = dense(c, p["w_uk"]).reshape(b, s, h, m.qk_nope_dim)
-    v = dense(c, p["w_uv"]).reshape(b, s, h, m.v_dim)
+    k_nope = split_heads(dense(c, p["w_uk"]), h, m.qk_nope_dim)
+    v = split_heads(dense(c, p["w_uv"]), h, m.v_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_dim)], -1)
     o = flash_attention(q, k, v, causal=True, chunk=chunk)
-    y = dense(o.reshape(b, s, -1), p["wo"])
+    y = dense(merge_heads(o), p["wo"])
     if return_cache:
         return y, (c, k_rope)
     return y
@@ -284,10 +343,10 @@ def mla_decode(
     cc, ckr = cache
     if not 0 <= pos < cc.shape[1]:
         raise IndexError(f"decode position {pos} outside a cache of {cc.shape[1]}")
-    cc[:, pos] = c_new[:, 0].to(cc.dtype)
-    ckr[:, pos] = kr_new[:, 0].to(ckr.dtype)
+    set_index(cc, 1, pos, c_new[:, 0].to(cc.dtype))
+    set_index(ckr, 1, pos, kr_new[:, 0].to(ckr.dtype))
     # Absorb W_uk into q: q_eff[b,h,r] = q_nope . W_uk[., h, .]
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    w_uk = split_heads(p["w_uk"], h, m.qk_nope_dim)
     q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())  # [B,1,H,kvr]
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     s = (
@@ -298,7 +357,7 @@ def mla_decode(
     s = s.masked_fill(~valid[None, None, None, :], _NEG)
     a = torch.softmax(s, dim=-1)
     o_c = torch.einsum("bqhs,bsr->bqhr", a.to(cc.dtype).float(), cc.float())  # [B,1,H,kvr]
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_dim)
+    w_uv = split_heads(p["w_uv"], h, m.v_dim)
     o = torch.einsum("bqhr,rhv->bqhv", o_c.to(w_uv.dtype).float(), w_uv.float())
     y = dense(o.reshape(b, 1, h * m.v_dim).to(x.dtype), p["wo"])
     return y, (cc, ckr)

@@ -27,6 +27,8 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
+from repro_torch.parallel.sharding import constrain, merge_heads, split_heads
+
 from .config import ModelConfig
 from .layers import _act, dense, mrope, param, rms_norm, rope
 
@@ -116,7 +118,7 @@ def _self_attn(p, x, cfg: ModelConfig, aux, *, window: int, want_cache: bool,
     if bidirectional:  # the encoder: rotary at its positions, no causal mask
         q, k, v = attn_mod._qkv(p, x, cfg, make_rope_fn(cfg, aux["positions"]))
         o = attn_mod.flash_attention(q, k, v, causal=False, chunk=aux["chunk"])
-        y = dense(o.reshape(*x.shape[:2], -1), p["wo"])
+        y = dense(merge_heads(o), p["wo"])
         return y, ((k, v) if want_cache else None)
     if cfg.mla is not None:
         out = attn_mod.mla_attend(p, x, cfg, aux["positions"], chunk=aux["chunk"],
@@ -132,18 +134,18 @@ def _cross_attn(p, x, cfg: ModelConfig, mkv):
     either), in key chunks of 1024 whatever the caller's chunk, as the
     reference's."""
     b, s, _ = x.shape
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads, cfg.head_dim_)
+    q = split_heads(dense(x, p["wq"], p.get("bq")), cfg.n_heads, cfg.head_dim_)
     k, v = mkv
     o = attn_mod.flash_attention(q, k, v, causal=False, chunk=1024)
-    return dense(o.reshape(b, s, -1), p["wo"])
+    return dense(merge_heads(o), p["wo"])
 
 
 def memory_kv(p_xattn, memory, cfg: ModelConfig):
     """One decoder layer's K/V ``[B, S_enc, Hkv, hd]`` of the encoder memory."""
     b, s, _ = memory.shape
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
-    k = dense(memory, p_xattn["wk"], p_xattn.get("bk")).reshape(b, s, hkv, hd)
-    v = dense(memory, p_xattn["wv"], p_xattn.get("bv")).reshape(b, s, hkv, hd)
+    k = split_heads(dense(memory, p_xattn["wk"], p_xattn.get("bk")), hkv, hd)
+    v = split_heads(dense(memory, p_xattn["wv"], p_xattn.get("bv")), hkv, hd)
     return k, v
 
 
@@ -153,6 +155,7 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
     cross-attends ``aux["memory_kv"]`` or, without it, the K/V of
     ``aux["memory"]`` (the encoder's output)."""
     _check(kind)
+    x = constrain(x, aux.get("ctx"), ("dp", None, None))  # each block's input, as a layer's
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         out = ssm_mod.ssm_apply(p["ssm"], xn, cfg, return_cache=want_cache)
@@ -171,20 +174,29 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
         )
         if want_cache and kind == "local":
             cache = _ring_from_full(cache, cfg.window)
-    x = x + y
+    x = _residual(x, y, aux)
     if kind == "xdec":
         mkv = aux.get("memory_kv")
         if mkv is None:
             mkv = memory_kv(p["xattn"], aux["memory"], cfg)
-        x = x + _cross_attn(p["xattn"], rms_norm(x, p["normx"], cfg.norm_eps), cfg, mkv)
+        x = _residual(x, _cross_attn(p["xattn"], rms_norm(x, p["normx"], cfg.norm_eps), cfg, mkv),
+                      aux)
         if want_cache:
             cache = (cache, mkv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
         top_i, top_w, probs = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
         aux_l = moe_mod.aux_load_balance_loss(probs, top_i, cfg.moe)
-        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg), aux_l, cache
+        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg, aux.get("ctx")), aux_l, cache
     return x + _mlp_apply(p["mlp"], xn, cfg), 0.0, cache
+
+
+def _residual(x, y, aux):
+    """``x + y`` in the canonical activation layout: with a mesh the
+    row-parallel product's partial sums are all-reduced here, before the
+    next norm, as in Megatron's layout (left alone, DTensor carries them
+    through the norm and gathers the next weights whole)."""
+    return constrain(x + y, aux.get("ctx"), ("dp", None, None))
 
 
 def _ring_from_full(kv, window: int):
@@ -212,6 +224,7 @@ def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
         cache, mkv = cache
         if mkv is None:
             raise ValueError("an xdec block decodes after a prefill: its memory K/V is None")
+    x = constrain(x, aux.get("ctx"), ("dp", None, None))  # each block's input, as a layer's
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         y, cache = ssm_mod.ssm_decode(p["ssm"], xn, cfg, cache)
@@ -227,14 +240,15 @@ def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
         rope_fn = make_rope_fn(cfg, aux["positions"])
         y, cache = attn_mod.gqa_decode(p["attn"], xn, cfg, rope_fn, cache, pos,
                                        window=cfg.window if kind == "local" else 0)
-    x = x + y
+    x = _residual(x, y, aux)
     if kind == "xdec":
-        x = x + _cross_attn(p["xattn"], rms_norm(x, p["normx"], cfg.norm_eps), cfg, mkv)
+        x = _residual(x, _cross_attn(p["xattn"], rms_norm(x, p["normx"], cfg.norm_eps), cfg, mkv),
+                      aux)
         cache = (cache, mkv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
         top_i, top_w, _ = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
-        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg), cache
+        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg, aux.get("ctx")), cache
     return x + _mlp_apply(p["mlp"], xn, cfg), cache
 
 

@@ -157,9 +157,8 @@ def mrope(
     d = x.shape[-1]
     if sum(sections) != d // 2:
         raise ValueError(f"mrope sections {sections} do not sum to head_dim/2 = {d // 2}")
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device)
-    )  # [D/2] which of t/h/w drives this channel
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)  # [D/2] which of t/h/w drives this channel
     pos_per_channel = positions.float()[sec_id]  # [D/2, B, S]
     ang = pos_per_channel.movedim(0, -1) * _freqs(d, theta, x.device)  # [B, S, D/2]
     return _apply_angles(x, ang[:, :, None, :])

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import compute_layout, constrain, mesh_region
 
 from . import blocks as blk
 from .bridge import flatten
@@ -58,6 +59,8 @@ from .layers import param, rms_norm, softcap
 
 __all__ = [
     "init",
+    "init_shapes",
+    "logical_axes",
     "forward",
     "loss_fn",
     "prefill",
@@ -161,6 +164,63 @@ def init(
     return tree
 
 
+# Each leaf's logical axes by its name, as the reference's ``param`` calls
+# give them (``repro/models/{lm,blocks,attention,moe,ssm,rglru}.py``); a
+# leaf stacked over a group's layers gains a leading "layers".
+_AXES: dict[str, tuple] = {
+    "embed": ("vocab", "embed"), "head": ("embed", "vocab"),
+    "final_norm": ("embed",), "enc_norm": ("embed",), "norm1": ("embed",),
+    "norm2": ("embed",), "normx": ("embed",), "norm_h": ("embed",), "norm_e": ("embed",),
+    "proj": (None, "embed"),
+    # GQA
+    "wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+    "wo": ("heads", "embed"), "bq": ("heads",), "bk": ("kv",), "bv": ("kv",),
+    # MLA
+    "w_dq": ("embed", "lora"), "q_norm": ("lora",), "w_uq": ("lora", "heads"),
+    "w_dkv": ("embed", "lora"), "kv_norm": ("lora",), "w_uk": ("lora", "heads"),
+    "w_uv": ("lora", "heads"),
+    # MLPs
+    "w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"), "w_down": ("ffn", "embed"),
+    "w_in": ("embed", "ffn"), "w_out": ("ffn", "embed"),
+    # MoE
+    "router": ("embed", None), "w1": ("experts", "embed", "ffn"),
+    "w3": ("experts", "embed", "ffn"), "w2": ("experts", "ffn", "embed"),
+    "ws1": ("embed", "ffn"), "ws3": ("embed", "ffn"), "ws2": ("ffn", "embed"),
+    # Mamba-2 SSD
+    "in_proj": ("embed", "ffn"), "conv_w": (None, "ffn"), "conv_b": ("ffn",),
+    "a_log": ("heads",), "dt_bias": ("heads",), "d_skip": ("heads",), "norm": ("ffn",),
+    "out_proj": ("ffn", "embed"),
+    # RG-LRU
+    "in_x": ("embed", "ffn"), "in_gate": ("embed", "ffn"), "w_a": ("ffn", "ffn"),
+    "b_a": ("ffn",), "w_i": ("ffn", "ffn"), "b_i": ("ffn",), "lam": ("ffn",),
+    "out": ("ffn", "embed"),
+}
+
+
+def logical_axes(tree, stacked: bool = False):
+    """The logical-axes tree of a parameter tree (tensors, ``meta`` or not):
+    each leaf's axes tuple, as the reference's ``init`` returns beside its
+    parameters.  Leaves under ``groups``/``enc_groups`` are stacked over
+    layers."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = logical_axes(v, stacked)
+        elif isinstance(v, list):  # groups / enc_groups: stacked layers
+            out[k] = [logical_axes(g, True) for g in v]
+        else:
+            axes = _AXES[k]
+            out[k] = ("layers", *axes) if stacked else axes
+    return out
+
+
+def init_shapes(cfg: ModelConfig):
+    """(``meta`` parameter tree in ``cfg.dtype``, logical-axes tree): the
+    dry-run's stand-ins, nothing allocated."""
+    params = init(cfg, None, device="meta", dtype=_torch_dtype(cfg.dtype))
+    return params, logical_axes(params)
+
+
 # Products without batch dimensions, the weight matmuls: what the reference's
 # ``dots_with_no_batch_dims_saveable`` policy keeps under ``remat="dots"``.
 # Attention's and the experts' batched products (``bmm``) are recomputed.
@@ -217,7 +277,8 @@ def _run_groups(params_groups, x, cfg: ModelConfig, aux, groups, want_cache=Fals
         per_layer = []
         layer_aux = []
         for layer_p in _unstack(gp, count):
-            x, a_sum, cs = body(x, layer_p)
+            x = constrain(x, aux.get("ctx"), ("dp", None, None))
+            x, a_sum, cs = body(x, compute_layout(layer_p, aux.get("ctx")))
             per_layer.append(cs)
             layer_aux.append(a_sum)
         if torch.is_tensor(layer_aux[0]):  # a group of MoE blocks
@@ -225,6 +286,15 @@ def _run_groups(params_groups, x, cfg: ModelConfig, aux, groups, want_cache=Fals
         if want_cache:
             caches.append(_stack(per_layer))
     return x, aux_total, (caches if want_cache else None)
+
+
+def _gather_top(params, ctx):
+    """The parameters outside the layer groups in their compute layout
+    (``compute_layout``); the groups follow one layer at a time."""
+    if ctx is None or ctx.mesh is None:
+        return params
+    top = {k: v for k, v in params.items() if k not in ("groups", "enc_groups")}
+    return {**params, **compute_layout(top, ctx)}
 
 
 def _embed_tokens(params, tokens, cfg: ModelConfig):
@@ -235,12 +305,14 @@ def _embed_tokens(params, tokens, cfg: ModelConfig):
     return x.to(_torch_dtype(cfg.dtype))
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, ctx=None):
     """f32 logits; the head product runs in the activation dtype and padded
     vocab columns are masked."""
+    x = constrain(x, ctx, ("dp", None, None))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = softcap((x @ head.to(x.dtype)).float(), cfg.logits_softcap)
+    logits = constrain(x @ head.to(x.dtype), ctx, ("dp", None, "tp"))
+    logits = softcap(logits.float(), cfg.logits_softcap)
     if cfg.vocab_padded != cfg.vocab:  # out of place: autograd reads the product
         keep = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
         logits = torch.where(keep, logits, -2.0e38)
@@ -253,7 +325,7 @@ def _arange_positions(ref: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=ref.device)[None].expand(b, s)
 
 
-def _make_aux(batch, cfg: ModelConfig, chunk=1024):
+def _make_aux(batch, cfg: ModelConfig, ctx=None, chunk=1024):
     if cfg.mrope:
         positions = batch["positions"]  # [3, B, S]
     else:
@@ -261,35 +333,42 @@ def _make_aux(batch, cfg: ModelConfig, chunk=1024):
         positions = batch.get("positions")
         if positions is None:
             positions = _arange_positions(tokens if tokens is not None else batch["embeds"])
-    return {"positions": positions, "chunk": chunk}
+    return {"positions": positions, "ctx": ctx, "chunk": chunk}
 
 
 def _encode(params, batch, cfg: ModelConfig, aux):
     """The encoder stack of an enc-dec model (bidirectional), then its norm."""
+    ctx = aux.get("ctx")
     x = batch["enc_embeds"].to(_torch_dtype(cfg.dtype))
     positions = batch.get("enc_positions")
     enc_aux = dict(aux, positions=_arange_positions(x) if positions is None else positions)
+    x = constrain(x, ctx, ("dp", None, None))
     x, _, _ = _run_groups(params["enc_groups"], x, cfg, enc_aux, (("enc", cfg.enc_layers),))
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return constrain(rms_norm(x, params["enc_norm"], cfg.norm_eps), ctx, ("dp", None, None))
 
 
-def _decoder_input(params, batch, cfg: ModelConfig):
+def _decoder_input(params, batch, cfg: ModelConfig, ctx=None):
     """The decoder's input rows: ``embeds`` where the batch has them, except
     in an enc-dec model, whose decoder reads ``tokens``."""
     if "embeds" in batch and not cfg.enc_layers:
-        return batch["embeds"].to(_torch_dtype(cfg.dtype))
-    return _embed_tokens(params, batch["tokens"], cfg)
+        x = batch["embeds"].to(_torch_dtype(cfg.dtype))
+    else:
+        x = _embed_tokens(params, batch["tokens"], cfg)
+    return constrain(x, ctx, ("dp", None, None))
 
 
-def forward(params, batch, cfg: ModelConfig, chunk: int = 1024):
+@mesh_region
+def forward(params, batch, cfg: ModelConfig, ctx=None, chunk: int = 1024):
     """Full-sequence forward over a batch (see the module docstring).
-    Returns (logits [B, S, vocab_padded] f32, aux loss)."""
-    aux = _make_aux(batch, cfg, chunk)
+    Returns (logits [B, S, vocab_padded] f32, aux loss).  With a ``ctx``
+    that holds a mesh the tensors are DTensors (see ``repro_torch.parallel``)."""
+    params = _gather_top(params, ctx)
+    aux = _make_aux(batch, cfg, ctx, chunk)
     if cfg.enc_layers:
         aux["memory"] = _encode(params, batch, cfg, aux)
-    x = _decoder_input(params, batch, cfg)
+    x = _decoder_input(params, batch, cfg, ctx)
     x, aux_loss, _ = _run_groups(params["groups"], x, cfg, aux, _decoder_groups(cfg))
-    return _logits(params, x, cfg), aux_loss
+    return _logits(params, x, cfg, ctx), aux_loss
 
 
 def _mtp_trunk(params, h, batch, cfg: ModelConfig, aux):
@@ -304,6 +383,7 @@ def _mtp_trunk(params, h, batch, cfg: ModelConfig, aux):
     hh = rms_norm(h[:, :-1], p["norm_h"], cfg.norm_eps)
     ee = rms_norm(emb[:, 1:], p["norm_e"], cfg.norm_eps)
     x = torch.cat([hh, ee], dim=-1) @ p["proj"].to(hh.dtype)
+    x = constrain(x, aux.get("ctx"), ("dp", None, None))
     aux_m = dict(aux, positions=aux["positions"][..., :-1])
     x, _, _ = blk.block_apply(p["block"], x, kind=cfg.block_types()[-1], cfg=cfg, aux=aux_m)
     return x
@@ -327,14 +407,14 @@ def _num_ce_chunks(cfg: ModelConfig, seq: int) -> int:
     return 1
 
 
-def _ce_chunk(params, h_c, l_c, m_c, cfg: ModelConfig):
+def _ce_chunk(params, h_c, l_c, m_c, cfg: ModelConfig, ctx=None):
     """(masked negative log-likelihood sum, mask sum) of one sequence chunk."""
-    logp = torch.log_softmax(_logits(params, h_c, cfg), dim=-1)
+    logp = torch.log_softmax(_logits(params, h_c, cfg, ctx), dim=-1)
     ll = logp.gather(-1, l_c[..., None].long())[..., 0]
     return (ll * m_c).sum(), m_c.sum()
 
 
-def _ce_stream(params, h, labels, mask, cfg: ModelConfig):
+def _ce_stream(params, h, labels, mask, cfg: ModelConfig, ctx=None):
     """Streaming cross-entropy over sequence chunks, as the reference's.
 
     The head matmul + log-softmax + gather run one [B, S/nc] slab at a time,
@@ -344,40 +424,42 @@ def _ce_stream(params, h, labels, mask, cfg: ModelConfig):
     """
     nc = _num_ce_chunks(cfg, h.shape[1])
     if nc <= 1:
-        return _ce(_logits(params, h, cfg), labels, mask)
+        return _ce(_logits(params, h, cfg, ctx), labels, mask)
     sc = h.shape[1] // nc
     nll = msum = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(nc):
         part = slice(c * sc, (c + 1) * sc)
         ll, m = checkpoint(_ce_chunk, params, h[:, part], labels[:, part], mask[:, part], cfg,
-                           use_reentrant=False, preserve_rng_state=False)
+                           ctx, use_reentrant=False, preserve_rng_state=False)
         nll, msum = nll - ll, msum + m
     return nll / torch.clamp(msum, min=1.0)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, chunk: int = 1024):
+@mesh_region
+def loss_fn(params, batch, cfg: ModelConfig, ctx=None, chunk: int = 1024):
     """(loss, metrics) of a training batch: ``tokens`` (or ``embeds``, or an
     enc-dec model's ``enc_embeds`` beside its ``tokens``), ``labels`` [B, S]
     and an optional f32 ``loss_mask``.  The loss is the streamed
     cross-entropy plus the MoE aux loss, plus ``cfg.mtp_weight`` times the
     MTP cross-entropy where the model has the module; ``metrics`` holds
     ``ce``, ``aux``, ``tokens`` (the mask's sum) and ``ce_mtp``."""
-    aux = _make_aux(batch, cfg, chunk)
+    params = _gather_top(params, ctx)
+    aux = _make_aux(batch, cfg, ctx, chunk)
     if cfg.enc_layers:
         aux["memory"] = _encode(params, batch, cfg, aux)
-    x = _decoder_input(params, batch, cfg)
+    x = _decoder_input(params, batch, cfg, ctx)
     h, aux_loss, _ = _run_groups(params["groups"], x, cfg, aux, _decoder_groups(cfg))
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
     aux_loss = torch.as_tensor(aux_loss, dtype=torch.float32, device=h.device)
-    ce = _ce_stream(params, h, labels, mask, cfg)
+    ce = _ce_stream(params, h, labels, mask, cfg, ctx)
     loss = ce + aux_loss
     metrics = {"ce": ce, "aux": aux_loss, "tokens": mask.sum()}
     if cfg.mtp and "tokens" in batch:
         h_mtp = _mtp_trunk(params, h, batch, cfg, aux)
-        ce_mtp = _ce_stream(params, h_mtp, labels[:, 1:], mask[:, 1:], cfg)
+        ce_mtp = _ce_stream(params, h_mtp, labels[:, 1:], mask[:, 1:], cfg, ctx)
         loss = loss + cfg.mtp_weight * ce_mtp
         metrics["ce_mtp"] = ce_mtp
     return loss, metrics
@@ -406,15 +488,17 @@ def init_caches(
             for kind, count in _decoder_groups(cfg)]
 
 
-def prefill(params, batch, cfg: ModelConfig, chunk: int = 1024):
+@mesh_region
+def prefill(params, batch, cfg: ModelConfig, ctx=None, chunk: int = 1024):
     """Run the prompt; returns (last-position logits [B, 1, vocab], caches)."""
-    aux = _make_aux(batch, cfg, chunk)
+    params = _gather_top(params, ctx)
+    aux = _make_aux(batch, cfg, ctx, chunk)
     if cfg.enc_layers:
         aux["memory"] = _encode(params, batch, cfg, aux)
-    x = _decoder_input(params, batch, cfg)
+    x = _decoder_input(params, batch, cfg, ctx)
     x, _, caches = _run_groups(params["groups"], x, cfg, aux, _decoder_groups(cfg),
                                want_cache=True)
-    return _logits(params, x[:, -1:, :], cfg), caches
+    return _logits(params, x[:, -1:, :], cfg, ctx), caches
 
 
 def pad_caches(caches, cfg: ModelConfig, cache_len: int):
@@ -449,24 +533,27 @@ def _pad_seq(x: torch.Tensor, cache_len: int) -> torch.Tensor:
     return F.pad(x, pad)
 
 
-def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig):
+@mesh_region
+def decode_step(params, tokens, caches, pos: int, cfg: ModelConfig, ctx=None):
     """One decode step.  tokens [B, 1]; ``pos`` a Python int, the number of
     tokens already in the caches, which are updated in place.  Under M-RoPE
     the token's position is ``pos`` in all three sections, as in the
     reference."""
     pos = operator.index(pos)
+    params = _gather_top(params, ctx)
     bsz = tokens.shape[0]
     shape = (3, bsz, 1) if cfg.mrope else (bsz, 1)
-    aux = {"positions": torch.full(shape, pos, device=tokens.device), "chunk": 1024}
-    x = _embed_tokens(params, tokens, cfg)
+    aux = {"positions": torch.full(shape, pos, device=tokens.device), "ctx": ctx, "chunk": 1024}
+    x = constrain(_embed_tokens(params, tokens, cfg), ctx, ("dp", None, None))
     for gp, cache, (kind, count) in zip(params["groups"], caches, _decoder_groups(cfg)):
         kinds = _group_kinds(kind)
         for layer_p, layer_c in zip(_unstack(gp, count), _unstack(cache, count)):
+            layer_p = compute_layout(layer_p, ctx)
             for i, k in enumerate(kinds):
                 x, _ = blk.block_decode(
                     layer_p[f"b{i}"], x, kind=k, cfg=cfg, aux=aux, cache=layer_c[i], pos=pos,
                 )
-    return _logits(params, x, cfg), caches
+    return _logits(params, x, cfg, ctx), caches
 
 
 # ------------------------------------------------------------------ counting

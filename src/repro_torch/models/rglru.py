@@ -27,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import over_batch_and_heads
+
 from .config import ModelConfig, RGLRUConfig
 from .layers import _act, dense, param
 from .ssm import _conv1d
@@ -90,7 +92,9 @@ def rglru_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool
     gate = _gelu(dense(xin, p["in_gate"]))
     xproj = dense(xin, p["in_x"])
     a, b = _gates(p, _conv1d(xproj, p["conv_w"], p["conv_b"]), r.c_exponent)
-    h = _scan(a, b).to(xin.dtype)
+    # channels are independent: on DTensors each rank scans its batch rows
+    # and channels (``local_map``), where DTensor would split the sequence
+    h = over_batch_and_heads(_scan, a, b).to(xin.dtype)
     y = dense(h * gate, p["out"])
     if return_cache:
         return y, (h[:, -1].float(), xproj[:, -(r.d_conv - 1) :, :])

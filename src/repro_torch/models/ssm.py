@@ -21,9 +21,18 @@ Pallas kernel here; these are plain PyTorch ops.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import (
+    axis_sizes,
+    gather_last,
+    make_context,
+    shard_map_compat,
+)
 
 from .config import ModelConfig, SSMConfig
 from .layers import param
@@ -101,25 +110,14 @@ def _gated_norm(y, z, gamma, eps):
     return (y * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(dt)
 
 
-def ssm_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
-    """Chunked SSD over the full sequence.  xin [B, S, d]; S a multiple of
-    the chunk.  With ``return_cache`` also the decode cache: the f32 state
-    after the last token and the last ``d_conv - 1`` pre-conv rows."""
-    s: SSMConfig = cfg.ssm
-    bsz, slen, _ = xin.shape
-    d_in, h, g, n, pdim, conv_ch = _dims(cfg)
-    q = s.chunk
-    assert slen % q == 0, (slen, q)
+def _ssd(x, bmat, cmat, dt, a, d_skip, *, q: int):
+    """The chunked SSD scan.  x [B, S, H, P], bmat/cmat [B, S, G, N] (each
+    group shared by H/G heads), dt [B, S, H] f32, a and d_skip [H].
+    Returns (y [B, S, H, P] f32, the state after the last token [B, H, P,
+    N] f32)."""
+    bsz, slen, h, pdim = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
     nc, hpg = slen // q, h // g
-
-    zxbcdt = xin @ p["in_proj"]
-    z, _, _, _, dt = _split_proj(zxbcdt, d_in, g, n, h)
-    xbc_pre = zxbcdt[..., d_in : d_in + conv_ch]  # [x, B, C] as packed: the cache tail
-    xbc = F.silu(_conv1d(xbc_pre, p["conv_w"], p["conv_b"]))
-    x, bmat, cmat = xbc[..., :d_in], xbc[..., d_in : d_in + g * n], xbc[..., d_in + g * n :]
-    dt = F.softplus(dt.float() + p["dt_bias"])  # [B, S, H]
-    a = -torch.exp(p["a_log"])  # [H]
-
     xh = x.reshape(bsz, nc, q, g, hpg, pdim).float()
     bh = bmat.reshape(bsz, nc, q, g, n).float()
     ch = cmat.reshape(bsz, nc, q, g, n).float()
@@ -127,7 +125,7 @@ def ssm_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool =
 
     cum = torch.cumsum(dtc * a, dim=2)  # [B, NC, Q, H]
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, NC, Q(t), Q(s), H]
-    tri = torch.ones(q, q, dtype=torch.bool, device=xin.device).tril()
+    tri = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
     ldecay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
 
     cb = torch.einsum("bcqgn,bcsgn->bcqsg", ch, bh)  # [B, NC, Q, Q, G]
@@ -140,7 +138,7 @@ def ssm_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool =
     bx = torch.einsum("bcsgn,bcsgjp->bcgjpn", bh, xh * wgt[..., None])
     chunk_decay = torch.exp(cum[:, :, -1, :]).reshape(bsz, nc, g, hpg)
 
-    hstate = torch.zeros(bsz, g, hpg, pdim, n, dtype=torch.float32, device=xin.device)
+    hstate = torch.zeros(bsz, g, hpg, pdim, n, dtype=torch.float32, device=x.device)
     h_prev = []  # the state BEFORE each chunk
     for c in range(nc):
         h_prev.append(hstate)
@@ -150,13 +148,59 @@ def ssm_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool =
     y_inter = torch.einsum("bcqgn,bcgjpn->bcqgjp", ch, h_prev) * \
         torch.exp(cum).reshape(bsz, nc, q, g, hpg)[..., None]
     y = (y_intra + y_inter).reshape(bsz, slen, h, pdim)
-    y = y + xh.reshape(bsz, slen, h, pdim) * p["d_skip"][None, None, :, None]
+    y = y + xh.reshape(bsz, slen, h, pdim) * d_skip[None, None, :, None]
+    return y, hstate.reshape(bsz, h, pdim, n)
+
+
+def _ssd_region(x, bmat, cmat, dt, a, d_skip, *, q: int):
+    """:func:`_ssd`; on DTensors per rank (``shard_map_compat``): batch over
+    the DP axes, heads over 'model' when they divide it and the groups do
+    too or there is one group (each rank then reads it whole)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return _ssd(x, bmat, cmat, dt, a, d_skip, q=q)
+    mesh = x.device_mesh
+    tpn = axis_sizes(mesh).get("model", 1)
+    h, g = x.shape[2], bmat.shape[2]
+    hsplit = "model" if h % tpn == 0 and (g == 1 or g % tpn == 0) else None
+    b = make_context(mesh).dp_spec(x.shape[0])
+    x_spec = (b, None, hsplit)
+    g_spec = (b, None, hsplit if g % tpn == 0 else None)
+    return shard_map_compat(
+        functools.partial(_ssd, q=q), mesh=mesh,
+        in_specs=(x_spec, g_spec, g_spec, x_spec, (hsplit,), (hsplit,)),
+        out_specs=[x_spec, (b, hsplit)],
+    )(x, bmat, cmat, dt, a, d_skip)
+
+
+def ssm_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
+    """Chunked SSD over the full sequence.  xin [B, S, d]; S a multiple of
+    the chunk.  With ``return_cache`` also the decode cache: the f32 state
+    after the last token and the last ``d_conv - 1`` pre-conv rows."""
+    s: SSMConfig = cfg.ssm
+    bsz, slen, _ = xin.shape
+    d_in, h, g, n, pdim, conv_ch = _dims(cfg)
+    q = s.chunk
+    assert slen % q == 0, (slen, q)
+    nc, hpg = slen // q, h // g
+
+    zxbcdt = gather_last(xin @ p["in_proj"])
+    z, _, _, _, dt = _split_proj(zxbcdt, d_in, g, n, h)
+    xbc_pre = zxbcdt[..., d_in : d_in + conv_ch]  # [x, B, C] as packed: the cache tail
+    xbc = F.silu(_conv1d(xbc_pre, p["conv_w"], p["conv_b"]))
+    x, bmat, cmat = xbc[..., :d_in], xbc[..., d_in : d_in + g * n], xbc[..., d_in + g * n :]
+    dt = F.softplus(dt.float() + p["dt_bias"])  # [B, S, H]
+    a = -torch.exp(p["a_log"])  # [H]
+
+    y, hstate = _ssd_region(x.reshape(bsz, slen, h, pdim), bmat.reshape(bsz, slen, g, n),
+                            cmat.reshape(bsz, slen, g, n), dt, a, p["d_skip"], q=q)
     y = y.reshape(bsz, slen, d_in).to(xin.dtype)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if return_cache:
         conv_tail = xbc_pre[:, -(s.d_conv - 1) :, :]
-        return out, (hstate.reshape(bsz, h, pdim, n), conv_tail.to(xin.dtype))
+        return out, (hstate, conv_tail.to(xin.dtype))
     return out
 
 
@@ -187,23 +231,51 @@ def ssm_decode(p: dict, xin: torch.Tensor, cfg: ModelConfig, cache):
     d_in, h, g, n, pdim, conv_ch = _dims(cfg)
     state, conv_tail = cache
 
-    zxbcdt = xin @ p["in_proj"]
+    zxbcdt = gather_last(xin @ p["in_proj"])
     z, _, _, _, dt = _split_proj(zxbcdt, d_in, g, n, h)
     window = torch.cat([conv_tail, zxbcdt[..., d_in : d_in + conv_ch]], dim=1)  # [B, K, C]
     xbc = F.silu((window * p["conv_w"]).sum(1, keepdim=True) + p["conv_b"])
     x, bmat, cmat = xbc[..., :d_in], xbc[..., d_in : d_in + g * n], xbc[..., d_in + g * n :]
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]  # [B, H]
-    dec = torch.exp(dt * -torch.exp(p["a_log"]))
-    xh = x.reshape(bsz, h, pdim).float()
+    new, y = _step_region(state, x.reshape(bsz, h, pdim), dt, -torch.exp(p["a_log"]),
+                          bmat.reshape(bsz, g, n), cmat.reshape(bsz, g, n), p["d_skip"])
+    y = y.reshape(bsz, 1, d_in).to(xin.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    state.copy_(new)
+    conv_tail.copy_(window[:, 1:])
+    return out, (state, conv_tail)
+
+
+def _step(state, x, dt, a, bmat, cmat, d_skip):
+    """One recurrence step: state [B, H, P, N] f32, x [B, H, P], dt [B, H]
+    f32, a and d_skip [H], bmat/cmat [B, G, N].  Returns (new state, y [B,
+    H, P] f32)."""
+    bsz, h, pdim, n = state.shape
+    g = bmat.shape[1]
+    dec = torch.exp(dt * a)
+    xh = x.float()
     bh = bmat.reshape(bsz, g, 1, 1, n).float()
     ch = cmat.reshape(bsz, g, 1, n, 1).float()
     new = (state * dec[:, :, None, None]).view(bsz, g, h // g, pdim, n) + \
         (xh * dt[:, :, None]).view(bsz, g, h // g, pdim, 1) * bh
     y = (new @ ch).view(bsz, h, pdim)
-    y = y + xh * p["d_skip"][None, :, None]
-    y = y.reshape(bsz, 1, d_in).to(xin.dtype)
-    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
-    state.copy_(new.view(bsz, h, pdim, n))
-    conv_tail.copy_(window[:, 1:])
-    return out, (state, conv_tail)
+    return new.view(bsz, h, pdim, n), y + xh * d_skip[None, :, None]
+
+
+def _step_region(state, x, dt, a, bmat, cmat, d_skip):
+    """:func:`_step`; on DTensors per rank (``shard_map_compat``), split as
+    :func:`_ssd_region` splits the scan (decode takes no gradient)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(state, DTensor):
+        return _step(state, x, dt, a, bmat, cmat, d_skip)
+    mesh = state.device_mesh
+    tpn = axis_sizes(mesh).get("model", 1)
+    h, g = state.shape[1], bmat.shape[1]
+    hsplit = "model" if h % tpn == 0 and (g == 1 or g % tpn == 0) else None
+    rows = (make_context(mesh).dp_spec(state.shape[0]), hsplit)
+    groups = (rows[0], hsplit if g % tpn == 0 else None)
+    specs = [rows, rows, rows, (hsplit,), groups, groups, (hsplit,)]
+    return shard_map_compat(_step, mesh=mesh, in_specs=specs, out_specs=[rows, rows])(
+        state, x, dt, a, bmat, cmat, d_skip)

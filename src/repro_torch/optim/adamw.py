@@ -40,7 +40,7 @@ class AdamWConfig(NamedTuple):
 
 def adamw_init(params, cfg: AdamWConfig):
     dt = getattr(torch, cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731 (a DTensor keeps its layout)
     dev = tree_leaves(params)[0].device
     return {
         "m": tree_map(zeros, params),

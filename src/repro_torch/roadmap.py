@@ -7,8 +7,7 @@ from __future__ import annotations
 __all__ = ["not_ported"]
 
 _ROADMAP_ITEM = {
-    "sharded serving": "queue item 6, input_specs and sharded serving",
-    "sharded training": "queue item 6, input_specs and sharded serving",
+    "multi-rank device scheduler": "queue item 8, a multi-rank device scheduler",
 }
 
 

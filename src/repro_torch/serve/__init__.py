@@ -1,5 +1,7 @@
 from .engine import (
     abstract_caches,
+    cache_pspecs,
+    cache_shardings,
     jit_decode_step,
     jit_prefill_step,
     Replica,
@@ -7,10 +9,10 @@ from .engine import (
     ServePool,
 )
 
-# The reference also exports cache_pspecs and cache_shardings, the sharded
-# cache layout; they come with the port's parallel slice.
 __all__ = [
     "abstract_caches",
+    "cache_pspecs",
+    "cache_shardings",
     "jit_decode_step",
     "jit_prefill_step",
     "Replica",

@@ -5,13 +5,14 @@ Device plane
 ------------
 ``jit_prefill_step``/``jit_decode_step`` keep the reference's names and
 return callables over ``lm.prefill``/``lm.decode_step``.  PyTorch runs them
-eagerly; there is nothing to trace.  They take a mesh-free context only
-(``None``, or an object whose ``mesh`` is ``None``): the KV-cache sharding
-policy (``cache_pspecs``/``cache_shardings``) comes with the port's parallel
-slice.  ``abstract_caches`` gives the cache tree as ``meta`` tensors: K/V
-for GQA blocks, the compressed ``c`` and rope key for MLA, and for an
-enc-dec model's ``xdec`` blocks the pair of self-attention K/V and
-encoder-memory K/V.
+eagerly; there is nothing to trace.  Given a context with a mesh, their
+"jit" is the reference's placement of inputs and outputs: parameters,
+batch and caches are laid out (as DTensors) by the sharding rules and
+``cache_pspecs`` on the way in, and the caches leave in that layout.
+``abstract_caches`` gives the cache tree as ``meta`` tensors: K/V for GQA
+blocks, the compressed ``c`` and rope key for MLA, and for an enc-dec
+model's ``xdec`` blocks the pair of self-attention K/V and encoder-memory
+K/V.
 
 Host plane
 ----------
@@ -43,10 +44,20 @@ from repro_torch.core.policy import SchedPolicy
 from repro_torch.core.topology import Topology
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.roadmap import not_ported
+from repro_torch.parallel.sharding import (
+    NamedSharding,
+    ParallelContext,
+    distribute_tree,
+    map_specs,
+    serve_context,
+    shardings_for,
+)
+from repro_torch.train.step import batch_shardings
 
 __all__ = [
     "abstract_caches",
+    "cache_pspecs",
+    "cache_shardings",
     "jit_prefill_step",
     "jit_decode_step",
     "Replica",
@@ -59,11 +70,6 @@ __all__ = [
 
 
 # ----------------------------------------------------------------- structure
-def _mesh_free(ctx) -> None:
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise not_ported("sharded serving")
-
-
 def abstract_caches(cfg: ModelConfig, bsz: int, cache_len: int, enc_len: int | None = None):
     """``meta``-device tensors matching what ``lm.prefill`` returns as caches.
     An enc-dec model's memory slot (``None`` in ``lm.init_caches``) holds
@@ -77,31 +83,133 @@ def abstract_caches(cfg: ModelConfig, bsz: int, cache_len: int, enc_len: int | N
     return [((sa, (sa[0].new_empty(shape), sa[0].new_empty(shape))),)]
 
 
+def _kv_spec(cfg, ctx, dp, seq: int) -> tuple:
+    """[L, B, S, Hkv, hd] -- heads over 'model' if divisible, else sequence."""
+    tp = ctx.tp_axis
+    tpn = ctx.size(tp)
+    if cfg.n_kv_heads % tpn == 0:
+        return (None, dp, None, tp, None)
+    if seq % tpn == 0:
+        return (None, dp, tp, None, None)
+    return (None, dp, None, None, None)
+
+
+def cache_pspecs(cfg: ModelConfig, ctx: ParallelContext, bsz: int, cache_len: int):
+    """Spec tree matching the prefill/decode cache structure."""
+    if ctx.mesh is None:
+        raise ValueError("cache_pspecs needs a context with a mesh")
+    tp = ctx.tp_axis
+    tpn = ctx.size(tp)
+    dp = ctx.dp_spec(bsz)
+
+    def div(n):  # 'model' only when divisible
+        return tp if n % tpn == 0 else None
+
+    def kind_spec(kind: str):
+        if kind in ("attn", "attn_dense", "attn_moe"):
+            if cfg.mla is not None:
+                s = div(cache_len)
+                return ((None, dp, s, None), (None, dp, s, None))
+            kv = _kv_spec(cfg, ctx, dp, cache_len)
+            return (kv, kv)
+        if kind == "local":
+            kv = _kv_spec(cfg, ctx, dp, cfg.window or cache_len)
+            return (kv, kv)
+        if kind == "ssm":
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            h = d_in // s.head_dim
+            conv_ch = d_in + 2 * s.n_groups * s.d_state
+            return ((None, dp, div(h), None, None), (None, dp, None, div(conv_ch)))
+        if kind == "rglru":
+            w = cfg.rglru.lru_width
+            return ((None, dp, div(w)), (None, dp, None, div(w)))
+        if kind == "xdec":
+            kv = _kv_spec(cfg, ctx, dp, cache_len)
+            return ((kv, kv), (kv, kv))
+        raise ValueError(kind)
+
+    return [tuple(kind_spec(k) for k in lm._group_kinds(kind))
+            for kind, _count in lm._decoder_groups(cfg)]
+
+
+def cache_shardings(cfg, ctx, bsz, cache_len):
+    return map_specs(lambda s: NamedSharding(ctx.mesh, s),
+                     cache_pspecs(cfg, ctx, bsz, cache_len))
+
+
+def _param_shardings(cfg: ModelConfig, ctx: ParallelContext):
+    params, axes = lm.init_shapes(cfg)
+    return shardings_for(axes, ctx, params)
+
+
 # ---------------------------------------------------------------- step makers
-def jit_prefill_step(cfg: ModelConfig, ctx=None):
-    """``prefill_step(params, batch) -> (logits, caches)``.  The reference's
-    ``batch_sds`` (the sharded batch layout) comes with the parallel slice."""
-    _mesh_free(ctx)
+def jit_prefill_step(cfg: ModelConfig, ctx: ParallelContext | None = None,
+                     batch_sds: dict | None = None):
+    """``prefill_step(params, batch) -> (logits, caches)``.
+
+    With a mesh, ``batch_sds`` (tensors or ``meta`` stand-ins of the batch)
+    fixes the batch and cache layouts: parameters go in by the sharding
+    rules, the batch over the DP axes, and the caches come out in
+    ``cache_pspecs``' layout for the prompt's length."""
+    mesh = getattr(ctx, "mesh", None)
 
     def prefill_step(params, batch):
-        return lm.prefill(params, batch, cfg)
+        return lm.prefill(params, batch, cfg, ctx if mesh is not None else None)
 
-    return prefill_step
+    if mesh is None:
+        return prefill_step
+    param_sh = _param_shardings(cfg, ctx)
+    b_sh = batch_shardings(batch_sds, ctx)
+    ref = batch_sds.get("tokens", batch_sds.get("embeds", batch_sds.get("enc_embeds")))
+    bsz, seq = ref.shape[0], ref.shape[1]
+    cache_sh = cache_shardings(cfg, ctx, bsz, seq)
+
+    def sharded_prefill(params, batch):
+        logits, caches = prefill_step(distribute_tree(params, param_sh),
+                                      distribute_tree(batch, b_sh))
+        return logits, distribute_tree(caches, cache_sh)
+
+    return sharded_prefill
 
 
-def jit_decode_step(cfg: ModelConfig, ctx=None):
+def jit_decode_step(
+    cfg: ModelConfig,
+    ctx: ParallelContext | None = None,
+    bsz: int | None = None,
+    cache_len: int | None = None,
+    *,
+    serve_layout: bool = True,
+):
     """``decode(params, tokens, caches, pos) -> (logits, caches)``.
 
-    The caches passed in are updated in place and returned, the port's form
-    of the reference's donated buffers.  The reference's ``bsz`` and
-    ``cache_len`` (the sharded cache layout) come with the parallel slice.
+    The caches passed in are always updated in place and returned, the
+    port's form of the reference's donated buffers.  With a mesh, ``bsz``
+    and ``cache_len`` fix the cache layout (``cache_pspecs``) and
+    ``serve_layout`` picks the inference parameter layout
+    (``serve_context``): dense weights TP-only, experts full-EP.  Pass
+    False to keep the training layout.
     """
-    _mesh_free(ctx)
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is not None and serve_layout:
+        ctx = serve_context(mesh, cfg.moe.num_experts if cfg.moe else 0)
 
     def decode(params, tokens, caches, pos):
-        return lm.decode_step(params, tokens, caches, pos, cfg)
+        return lm.decode_step(params, tokens, caches, pos, cfg, ctx if mesh is not None else None)
 
-    return decode
+    if mesh is None:
+        return decode
+    param_sh = _param_shardings(cfg, ctx)
+    cache_sh = cache_shardings(cfg, ctx, bsz, cache_len)
+    tok_sh = NamedSharding(mesh, (ctx.dp_spec(bsz), None))
+
+    def sharded_decode(params, tokens, caches, pos):
+        logits, caches = decode(distribute_tree(params, param_sh),
+                                distribute_tree(tokens, tok_sh),
+                                distribute_tree(caches, cache_sh), pos)
+        return logits, distribute_tree(caches, cache_sh)
+
+    return sharded_decode
 
 
 # -------------------------------------------------------------- host serving

@@ -1,0 +1,239 @@
+"""Run a function on ``world`` ranks of a ``gloo`` process group, one CPU
+process a rank, for the port's sharded tests.
+
+``run_group(world, "module:function", payload, tmp_path)`` starts ``world``
+Python processes.  Each joins the group through a ``FileStore`` under
+``tmp_path``, calls ``function(rank, world, payload)`` (``payload`` a
+picklable object: numpy arrays, numbers, strings) and rank 0 pickles what
+it returns.  The group gets its own timeout; a hung or failed rank kills
+the others, and the call raises with the ranks' error output.  The
+functions run in processes that import torch and ``repro_torch``, never
+JAX: the parent holds the reference's side.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_BOOT = textwrap.dedent(
+    """
+    import os, pickle, sys
+    sys.path[:0] = [{src!r}, {tests!r}]
+    import importlib
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    rank, world = int(sys.argv[1]), int(sys.argv[2])
+    store = dist.FileStore({store!r}, world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    mod, fn = {target!r}.split(":")
+    with open({payload!r}, "rb") as f:
+        payload = pickle.load(f)
+    out = getattr(importlib.import_module(mod), fn)(rank, world, payload)
+    if rank == 0:
+        with open({result!r}, "wb") as f:
+            pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    """
+)
+
+
+def run_group(world: int, target: str, payload, tmp_path, timeout: float = 300.0):
+    """Run ``target`` on ``world`` gloo ranks; returns rank 0's result."""
+    tmp = Path(tmp_path)
+    tmp.mkdir(parents=True, exist_ok=True)
+    paths = {k: str(tmp / f"{k}_{os.getpid()}_{time.monotonic_ns()}")
+             for k in ("store", "payload", "result")}
+    with open(paths["payload"], "wb") as f:
+        pickle.dump(payload, f)
+    code = _BOOT.format(src=str(ROOT / "src"), tests=str(ROOT / "tests"), target=target,
+                        **paths)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONWARNINGS="ignore")
+    env.pop("XLA_FLAGS", None)
+    logs = [tmp / f"rank{r}_{os.getpid()}.log" for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world)], env=env,
+                              stdout=subprocess.DEVNULL, stderr=open(logs[r], "w"))
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode != 0 for p in procs):
+        errs = "\n".join(f"--- rank {r} (rc {p.returncode}):\n{logs[r].read_text()[-3000:]}"
+                         for r, p in enumerate(procs))
+        raise RuntimeError(f"{target} on {world} ranks failed:\n{errs}")
+    with open(paths["result"], "rb") as f:
+        return pickle.load(f)
+
+
+# ------------------------------------------------------------------ workers
+# Each worker takes (rank, world, payload) and returns plain numpy/floats.
+
+def _mesh(payload):
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.sharding import make_context
+
+    data, model, pod = payload["mesh"]
+    return make_context(make_debug_mesh(data, model, pod))
+
+
+def _np(t):
+    import torch
+
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    return t.detach().float().numpy() if torch.is_tensor(t) else t
+
+
+def _cfg(payload):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke(payload["arch"]).with_(dtype="float32", **payload.get("overrides", {}))
+    if cfg.moe is not None and payload.get("cf") is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=payload["cf"]))
+    return cfg
+
+
+def serve_worker(rank, world, payload):
+    """Forward, prefill, then decode of one SMOKE arch, sharded on the
+    payload's mesh and unsharded; returns both sides' logits."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.bridge import params_from_flat
+    from repro_torch.serve import engine
+
+    cfg = _cfg(payload)
+    params = params_from_flat(payload["params"], device="cpu", dtype=torch.float32)
+    ctx = _mesh(payload)
+    batch = {k: torch.from_numpy(v) for k, v in payload["batch"].items()}
+    nxt = torch.from_numpy(payload["next"])
+    s, n = payload["s0"], nxt.shape[1]
+    out = {"plain": {}, "sharded": {}}
+
+    fwd, _ = lm.forward(params, batch, cfg)
+    pl, pc = lm.prefill(params, batch, cfg)
+    pc = lm.pad_caches(pc, cfg, s + n)
+    out["plain"] = {"forward": fwd, "prefill": pl, "decode": []}
+    for i in range(n):
+        dl, pc = lm.decode_step(params, nxt[:, i:i + 1], pc, s + i, cfg)
+        out["plain"]["decode"].append(dl)
+
+    from repro_torch.parallel.sharding import distribute_tree
+    from repro_torch.train.step import batch_shardings
+
+    dparams = distribute_tree(params, engine._param_shardings(cfg, ctx))
+    fwd, _ = lm.forward(dparams, distribute_tree(batch, batch_shardings(batch, ctx)), cfg, ctx)
+    sl, sc = engine.jit_prefill_step(cfg, ctx, batch)(params, batch)
+    sc = lm.pad_caches(sc, cfg, s + n)
+    dec = engine.jit_decode_step(cfg, ctx, nxt.shape[0], s + n)
+    out["sharded"] = {"forward": fwd, "prefill": sl, "decode": []}
+    for i in range(n):
+        dl, sc = dec(params, nxt[:, i:i + 1], sc, s + i)
+        out["sharded"]["decode"].append(dl)
+    return {side: {k: [_np(t) for t in v] if isinstance(v, list) else _np(v)
+                   for k, v in d.items()} for side, d in out.items()}
+
+
+def train_worker(rank, world, payload):
+    """``jit_train_step`` over the payload's batches on its mesh; returns
+    each step's metrics and the final parameters, whole."""
+    import torch
+
+    from repro_torch.models.bridge import flatten, params_from_flat
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import jit_train_step
+
+    cfg = _cfg(payload)
+    params = params_from_flat(payload["params"], device="cpu", dtype=torch.float32)
+    ocfg = AdamWConfig(lr=payload["lr"])
+    opt = adamw_init(params, ocfg)
+    step = jit_train_step(cfg, _mesh(payload), ocfg, schedule=payload.get("schedule"))
+    metrics = []
+    for b in payload["batches"]:
+        params, opt, m = step(params, opt, {k: torch.from_numpy(v) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "params": {k: _np(v) for k, v in flatten(params).items()},
+            "placements": {k: str(getattr(v, "placements", None))
+                           for k, v in flatten(params).items()}}
+
+
+def moe_worker(rank, world, payload):
+    """``moe_apply`` in the training layout (experts over 'model') and in
+    the serving layout (full EP), against the one-device dispatch: the
+    serving layout on all tokens, the training layout on each data shard's
+    tokens (its capacity is a shard's, as in the reference's
+    ``shard_map``)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import moe
+    from repro_torch.models.bridge import params_from_flat
+    from repro_torch.parallel.sharding import (
+        distribute,
+        distribute_tree,
+        serve_context,
+        shardings_for,
+    )
+    from repro_torch.models.lm import logical_axes
+
+    cfg = _cfg(payload)
+    p = params_from_flat(payload["moe"], device="cpu", dtype=torch.float32)
+    x = torch.from_numpy(payload["x"])
+    ti, tw = torch.from_numpy(payload["top_i"]), torch.from_numpy(payload["top_w"])
+    train = _mesh(payload)
+    serve = serve_context(train.mesh, cfg.moe.num_experts)
+    out = {"whole": _np(moe.moe_apply(p, x, ti, tw, cfg)),
+           "per_shard": [_np(moe.moe_apply(p, xs, a, b, cfg)) for xs, a, b in
+                         zip(x.chunk(train.size(train.dp_axes)),
+                             ti.chunk(train.size(train.dp_axes)),
+                             tw.chunk(train.size(train.dp_axes)))]}
+    axes = logical_axes({"moe": p})["moe"]
+    for name, ctx in (("train", train), ("serve", serve)):
+        dp = distribute_tree(p, shardings_for(axes, ctx, p))
+        rows = (ctx.dp_axes if len(ctx.dp_axes) > 1 else ctx.dp_axes[0], None, None)
+        xs, tis, tws = (distribute(t, ctx.mesh, rows) for t in (x, ti, tw))
+        with implicit_replication():
+            out[name] = _np(moe.moe_apply(dp, xs, tis, tws, cfg, ctx))
+        out[name + "_ep_axes"] = ctx.ep_axes
+    return out
+
+
+def restore_worker(rank, world, payload):
+    """Restore a checkpoint into the mesh's layout; returns the leaves
+    whole, with their placements."""
+    from repro_torch.checkpoint import store
+    from repro_torch.models import lm
+    from repro_torch.models.bridge import flatten
+    from repro_torch.serve.engine import _param_shardings
+    from repro_torch.configs import get_smoke
+
+    import torch
+
+    cfg = get_smoke(payload["arch"])
+    ctx = _mesh(payload)
+    template = lm.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    tree, step = store.restore(payload["dir"], template, shardings=_param_shardings(cfg, ctx))
+    flat = flatten(tree)
+    return {"step": step, "leaves": {k: v.full_tensor().view(torch.int16).numpy()
+                                     if v.dtype == torch.bfloat16 else v.full_tensor().numpy()
+                                     for k, v in flat.items()},
+            "sharded": sum(any(p.is_shard() for p in v.placements) for v in flat.values())}

@@ -1,8 +1,9 @@
 """The port on the card: its CUDA kernel against its plain PyTorch version,
 the serving path's SMOKE models (dense, MoE, MLA, Mamba-2, RG-LRU with local
 attention, enc-dec, VLM) against the same models on the CPU, a SMOKE
-training step and a HetDPTrainer gradient on the card against the CPU's, and
-the device scheduler's run on the card against its run on the CPU.
+training step and a HetDPTrainer gradient on the card against the CPU's,
+the device scheduler's run on the card against its run on the CPU, and the
+sharded step makers on a one-rank ``nccl`` mesh against the unsharded ones.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
 ``torch.cuda.is_available()`` is false; the decision is taken inside the
@@ -417,3 +418,55 @@ def test_het_dp_on_card_streams_matches_cpu(cuda):
     assert _rel_l2(got, want) <= 1e-5
     out = tr.step([_to(mb, cuda) for mb in mbs])
     assert sum(out["tasks_per_worker"]) == 6 and out["grad_norm"] > 0
+
+
+# ------------------------------------------------------------ sharded steps
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A (1, 1) ("data", "model") mesh over a one-rank ``nccl`` group of its
+    own store, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.cuda.set_device(0)  # the rank's card, before NCCL starts
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_debug_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "deepseek-v3-671b"])
+def test_sharded_steps_on_card_match_unsharded(one_rank_mesh, arch):
+    """Phases 19-20 at SMOKE size: ``jit_prefill_step`` then
+    ``jit_decode_step`` (serving layout; deepseek's experts full-EP under
+    ``local_map``) on a one-rank ``nccl`` mesh, the parameters wrapped as
+    DTensors without a copy, against the unsharded steps on the card: the
+    same logits, bit for bit."""
+    from repro_torch.models.bridge import flatten
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.serve import engine
+
+    dev = torch.device("cuda")
+    cfg = get_smoke(arch)
+    if cfg.moe is not None:
+        cfg = cfg.with_(mtp=False, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    ctx = sh.serve_context(one_rank_mesh, cfg.moe.num_experts if cfg.moe else 0)
+    dparams = sh.distribute_tree(params, engine._param_shardings(cfg, ctx))
+    plain, wrapped = flatten(params), flatten(dparams)
+    assert all(wrapped[k].to_local().data_ptr() == t.data_ptr() for k, t in plain.items())
+    toks = torch.randint(0, cfg.vocab, (2, 20), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    prompt = {"tokens": toks[:, :16]}
+    wl, wc = lm.prefill(params, prompt, cfg)
+    gl, gc = engine.jit_prefill_step(cfg, ctx, prompt)(dparams, prompt)
+    assert torch.equal(gl.full_tensor(), wl)
+    wc, gc = lm.pad_caches(wc, cfg, 20), lm.pad_caches(gc, cfg, 20)
+    decode = engine.jit_decode_step(cfg, ctx, 2, 20)
+    for i in range(16, 20):
+        wl, wc = lm.decode_step(params, toks[:, i:i + 1], wc, i, cfg)
+        gl, gc = decode(dparams, toks[:, i:i + 1], gc, i)
+        assert torch.equal(gl.full_tensor(), wl), i

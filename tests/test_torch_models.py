@@ -479,9 +479,11 @@ def test_mrope_through_the_model_matches():
 
 
 def test_not_ported_error_names_item():
-    err = not_ported("sharded serving")
+    err = not_ported("multi-rank device scheduler")
     assert isinstance(err, NotImplementedError)
-    assert "ROADMAP.md §1, queue item 6, input_specs and sharded serving" in str(err)
+    assert "ROADMAP.md §1, queue item 8, a multi-rank device scheduler" in str(err)
+    with pytest.raises(KeyError):  # sharding came with item 6: nothing names it now
+        not_ported("sharded serving")
     with pytest.raises(KeyError):  # every block kind is ported: none has an item left
         not_ported("xdec")
     with pytest.raises(ValueError, match="unknown block kind"):

@@ -172,14 +172,16 @@ def test_shared_expert_and_dense_oracle_match(arch):
     _close(got, oracle.numpy(), TOL)
 
 
-def test_moe_apply_refuses_a_mesh():
+def test_moe_apply_takes_a_mesh_free_context():
+    """A context without a mesh is the one-device dispatch, bit for bit
+    (the expert-parallel layouts on a mesh: ``tests/test_torch_sharding.py``)."""
     class Ctx:
-        mesh = object()
+        mesh = None
 
-    jcfg, tcfg, jp, tp, x = _moe_setup("moonshot-v1-16b-a3b", 8.0)
-    top_i = torch.zeros((2, 16, 2), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue item 6"):
-        tmoe.moe_apply(tp, _t(x), top_i, torch.ones((2, 16, 2)), tcfg, ctx=Ctx())
+    jcfg, tcfg, jp, tp, x = _moe_setup("moonshot-v1-16b-a3b", 1.0)
+    top_i, top_w, _ = tmoe.route(tp["router"], _t(x), tcfg.moe)
+    want = tmoe.moe_apply(tp, _t(x), top_i, top_w, tcfg)
+    assert torch.equal(tmoe.moe_apply(tp, _t(x), top_i, top_w, tcfg, ctx=Ctx()), want)
 
 
 # ---------------------------------------------------------------------- MLA

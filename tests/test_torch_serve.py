@@ -58,9 +58,9 @@ def test_host_plane_is_byte_identical():
 
 
 def test_exports_are_the_references_minus_cache_sharding():
-    later = {"cache_pspecs", "cache_shardings"}  # the parallel slice
-    assert set(tserve.__all__) == set(jserve.__all__) - later
-    assert set(tengine.__all__) == set(jengine.__all__) - later
+    """The cache sharding came with the parallel slice: nothing is missing."""
+    assert set(tserve.__all__) == set(jserve.__all__)
+    assert set(tengine.__all__) == set(jengine.__all__)
 
 
 def test_abstract_caches_match_reference_shapes():
@@ -152,15 +152,21 @@ class _NoMesh:
     mesh = None
 
 
-def test_step_makers_refuse_a_mesh():
-    class Ctx:
-        mesh = object()
-
-    cfg = get_smoke(ARCH)
-    with pytest.raises(NotImplementedError, match="queue item 6"):
-        tengine.jit_decode_step(cfg, Ctx())
-    with pytest.raises(NotImplementedError, match="queue item 6"):
-        tengine.jit_prefill_step(cfg, Ctx())
+def test_step_makers_take_a_mesh_free_context():
+    """A context without a mesh gives the plain steps (with a mesh:
+    ``tests/test_torch_sharded_steps.py``); ``cache_pspecs`` needs one."""
+    cfg = get_smoke(ARCH).with_(dtype="float32")
+    params = tlm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab, (2, 5), generator=torch.Generator().manual_seed(1))
+    wl, wc = tlm.prefill(params, {"tokens": toks}, cfg)
+    gl, gc = tengine.jit_prefill_step(cfg, _NoMesh(), {"tokens": toks})(params, {"tokens": toks})
+    assert torch.equal(gl, wl)
+    step = tengine.jit_decode_step(cfg, _NoMesh(), 2, 5)
+    wc, gc = tlm.pad_caches(wc, cfg, 6), tlm.pad_caches(gc, cfg, 6)
+    assert torch.equal(step(params, toks[:, :1], gc, 5)[0],
+                       tlm.decode_step(params, toks[:, :1], wc, 5, cfg)[0])
+    with pytest.raises(ValueError, match="needs a context with a mesh"):
+        tengine.cache_pspecs(cfg, _NoMesh(), 2, 5)
 
 
 def test_generate_matches_reference():

@@ -35,6 +35,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import lm as tlm
 from repro_torch.models.bridge import flatten, params_from_flat
 from repro_torch.optim import adamw as tadamw
+from repro_torch.parallel import sharding as tsh
 from repro_torch.runtime import compression as tcomp
 from repro_torch.train import step as tstep
 
@@ -317,15 +318,19 @@ def test_train_step_matches_reference():
 
 
 def test_sharded_training_is_not_ported():
+    """``abstract_train_state`` builds ``meta`` trees and the parameters'
+    logical axes; without a mesh ``train_shardings`` has none and
+    ``jit_train_step`` is the plain step (the sharded step on meshes:
+    ``tests/test_torch_sharded_steps.py``)."""
     cfg = tconfigs.get_smoke("phi4-mini-3.8b")
-    for call in (lambda: tstep.train_shardings(cfg, None, tadamw.AdamWConfig()),
-                 lambda: tstep.batch_pspecs({}, None),
-                 lambda: tstep.jit_train_step(cfg, None, tadamw.AdamWConfig(), {})):
-        with pytest.raises(NotImplementedError, match="queue item 6"):
-            call()
-    params, opt = tstep.abstract_train_state(cfg, tadamw.AdamWConfig())
+    ctx = tsh.make_context(None)
+    assert tstep.train_shardings(cfg, ctx, tadamw.AdamWConfig()) == (None, None)
+    assert tstep.batch_shardings({"tokens": torch.zeros(2, 3)}, ctx) == {"tokens": None}
+    assert callable(tstep.jit_train_step(cfg, ctx, tadamw.AdamWConfig(), {}))
+    params, opt, axes = tstep.abstract_train_state(cfg, tadamw.AdamWConfig())
     assert all(t.device.type == "meta" for t in tree_leaves(params) + tree_leaves(opt["m"]))
     assert sum(t.numel() for t in tree_leaves(params)) == cfg.param_count()
+    assert axes["embed"] == ("vocab", "embed")
 
 
 # --------------------------------------------------------------- checkpoints
@@ -509,8 +514,8 @@ def test_launch_train_cpu_smoke_resumes(tmp_path, capsys):
 
 
 def test_launch_train_refuses_mesh_and_frontends():
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        tlaunch.main(["--arch", "phi4-mini-3.8b", "--device", "cpu", "--smoke", "--mesh", "2x4"])
+    """Frontend archs exit as the reference's driver does (``--mesh`` runs:
+    ``tests/test_torch_sharding.py::test_launch_train_mesh_on_gloo``)."""
     for arch in ("seamless-m4t-medium", "qwen2-vl-2b"):
         with pytest.raises(SystemExit, match="feeds token batches"):
             tlaunch.main(["--arch", arch, "--device", "cpu", "--smoke"])

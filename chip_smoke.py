@@ -128,6 +128,21 @@ Phases (each prints its lines; any failure exits non-zero):
             12's parameters, the same through ``serve_context``'s full-EP
             layout (``moe_apply`` under ``local_map``), the unsharded run's
             routing replayed, at the MoE bounds.  Run at the end of phase 12.
+21. sched-ranks  the multi-rank device scheduler on a 1-D ("workers",)
+            mesh of the one-rank ``nccl`` group (phase 19's, made here if
+            it is not there yet): ``virtual_run(mesh=...)`` at SCHED_CELL
+            and SCHED_BIG, packed and baseline, against the one-process card
+            run on the same CPU generator's draws (rounds, makespan and
+            every field equal); ms per round (CUDA events) beside the
+            one-process round's, and the host's enqueue time of each.  Run
+            at the end of phase 10;
+22. sched-ranks  SCHED_RANKS processes started by this script, one ``gloo``
+            group whose tensors lie on the one card, SCHED_CELL's workers
+            in blocks of P / SCHED_RANKS, packed and baseline: every rank's
+            block after every round against its rows of the one-process
+            card run on the same draws (integers equal, floats within
+            SCHED_RTOL); wall ms per round.  A rank that fails or outlasts
+            SCHED_RANKS_TIMEOUT fails the phase.  Run after phase 21.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -277,6 +292,12 @@ SCHED_BIG = (1024, 204, 16, 30)
 SCHED_WINDOWS = 100_000
 SCHED_RTOL = 1e-6
 SCHED_MAX_ROUNDS = 4096
+# Phases 21-22: the multi-rank scheduler.  The card machine has one card, and
+# NCCL takes one rank a card, so phase 22's ranks share it through gloo.
+SCHED_RANKS = 4
+SCHED_RANKS_TIMEOUT = 300.0   # s, phase 22's group from start to end
+SCHED_WARM_ROUNDS = 5         # phase 21's timed state: steals under way
+SCHED_TIMED_ROUNDS = 40       # phase 21's timed rounds of each round function
 # Phases 17-18: training phi4-mini-3.8b at full width through HetDPTrainer.
 # 16 of its 32 layers: bf16 parameters (5.68 GB), f32 moments (22.7 GB) and
 # 3 workers' accumulators and fresh gradients (34.1 GB) make 62.5 GB before
@@ -1939,6 +1960,217 @@ def sched_phase(torch, np, dev) -> None:
     print(f"[sched] P={p} R={radius} packed: {float(np.median(ms)):.4f} ms per round "
           f"(median of {len(ms)}, CUDA events, draws on the card); max_memory_allocated "
           f"{_gb(peak)} (card run of the comparison)")
+    # 21. sched-ranks, one rank ------------------------------------------------
+    sched_one_rank_phase(torch, np, dev)
+    # 22. sched-ranks, four processes on the card --------------------------------
+    sched_four_ranks_phase(torch, np, dev)
+
+
+def sched_one_rank_phase(torch, np, dev) -> None:
+    """Phase 21 (see the module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import device_sched as ds
+    from repro_torch.launch.mesh import make_workers_mesh
+
+    card = card_name()
+    one_rank_mesh(torch, dev)  # the one-rank group of phases 19-20
+    mesh = make_workers_mesh(1)
+    for cfg in (SCHED_CELL, SCHED_BIG):
+        p, radius, max_steal, per = cfg
+        for packed in (True, False):
+            what = f"sched-21 P={p} R={radius} {'packed' if packed else 'baseline'}"
+            runs = [ds.virtual_run(p, quarter_speeds(p), p * per, radius, max_steal, device=dev,
+                                   packed=packed, generator=torch.Generator().manual_seed(0),
+                                   mesh=m)
+                    for m in (None, mesh)]
+            (want, want_rounds, want_ms), (got, rounds, makespan) = runs
+            need(got.queue.device.type == dev.type, f"{what}: state left {dev}")
+            field = sched_states_equal(torch, got, want)
+            need(rounds == want_rounds and makespan == want_ms and field is None,
+                 f"{what}: one rank vs one process: rounds {rounds} vs {want_rounds}, "
+                 f"makespan {makespan} vs {want_ms}, first field that differs {field}")
+            sched_check_conserved(torch, got, rounds, p * per, what)
+            times = sched_round_times(torch, np, ds, cfg, packed, dev, mesh)
+            print(f"[{what}] one {dist.get_backend()} rank == one process: {rounds} rounds, "
+                  f"makespan {makespan}, every field equal; ms per round (median of "
+                  f"{SCHED_TIMED_ROUNDS}, CUDA events) one rank {times['ranks'][0]:.4f} / one "
+                  f"process {times['one'][0]:.4f}; host enqueue {times['ranks'][1]:.4f} / "
+                  f"{times['one'][1]:.4f} ms; {card}")
+
+
+def sched_round_times(torch, np, ds, cfg, packed: bool, dev, mesh) -> dict:
+    """Median device ms (CUDA events) and host enqueue ms of one round on a
+    fixed mid-run state, one process and on ``mesh``, in turns (one, ranks,
+    ranks, one) so that drift shows between two runs of one."""
+    p, radius, max_steal, per = cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fns = {k: ds.make_round_fn(p, radius, max_steal, packed=packed, device=dev, mesh=m)
+           for k, m in (("one", None), ("ranks", mesh))}
+    state = ds.init_state(p, [per] * p, quarter_speeds(p), radius, p * per, device=dev)
+    for _ in range(SCHED_WARM_ROUNDS):
+        state = fns["one"](state, gen)
+    dev_ms = {k: [] for k in fns}
+    host_ms = {k: [] for k in fns}
+    for k in ("one", "ranks", "ranks", "one"):
+        for i in range(SCHED_TIMED_ROUNDS // 2 + 2):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fns[k](state, gen)
+            t1 = time.perf_counter()
+            stop.record()
+            torch.cuda.synchronize()
+            if i >= 2:  # two warm-up calls a turn
+                dev_ms[k].append(start.elapsed_time(stop))
+                host_ms[k].append((t1 - t0) * 1e3)
+    return {k: (float(np.median(dev_ms[k])), float(np.median(host_ms[k]))) for k in fns}
+
+
+_RANK_BOOT = """
+import sys
+sys.path[:0] = [{root!r}, {src!r}]
+import chip_smoke
+chip_smoke.sched_rank_main(int(sys.argv[1]), sys.argv[2], sys.argv[3])
+"""
+
+
+def sched_snapshot(torch, state) -> dict:
+    """A block of scheduler state on the host: the queue as a digest of each
+    worker's live prefix [0, tail), every other field whole."""
+    import hashlib
+
+    out = {k: v.cpu().numpy() for k, v in state._asdict().items() if k != "queue"}
+    queue = state.queue.cpu()
+    live = torch.arange(queue.shape[1])[None, :] < state.tail.cpu()[:, None]
+    out["queue"] = hashlib.sha256(torch.where(live, queue, -2).numpy().tobytes()).hexdigest()
+    return out
+
+
+def sched_rank_main(rank: int, tmp: str, device: str) -> None:
+    """One of phase 22's processes: rank ``rank`` of a ``gloo`` group of
+    SCHED_RANKS joined through a file store under ``tmp``, SCHED_CELL's
+    workers in blocks on ``device``; writes its block's snapshot after every
+    round and the wall ms of every round to ``tmp``/rank<r>.pkl."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import device_sched as ds
+    from repro_torch.launch.mesh import make_workers_mesh
+    from repro_torch.parallel.collectives import all_reduce
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), SCHED_RANKS),
+                            rank=rank, world_size=SCHED_RANKS,
+                            timeout=datetime.timedelta(seconds=SCHED_RANKS_TIMEOUT))
+    try:
+        mesh = make_workers_mesh(SCHED_RANKS)
+        p, radius, max_steal, per = SCHED_CELL
+        out = {}
+        for packed in (True, False):
+            gen = torch.Generator().manual_seed(0)
+            state = ds.init_state(p, [per] * p, quarter_speeds(p), radius, p * per, device=dev,
+                                  mesh=mesh)
+            step = ds.make_round_fn(p, radius, max_steal, packed=packed, device=dev, mesh=mesh)
+            snaps, ms = [], []
+            while len(ms) < SCHED_MAX_ROUNDS and int(
+                    all_reduce((state.tail - state.head).sum(), mesh, ("workers",))) > 0:
+                sync()
+                t0 = time.perf_counter()
+                state = step(state, gen)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                snaps.append(sched_snapshot(torch, state))
+            out[packed] = {"snaps": snaps, "ms": ms}
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def sched_four_ranks_phase(torch, np, dev) -> None:
+    """Phase 22 (see the module docstring)."""
+    import pickle
+
+    from repro_torch.core import device_sched as ds
+
+    card = card_name()
+    root = os.path.dirname(os.path.abspath(__file__))
+    p, radius, max_steal, per = SCHED_CELL
+    b = p // SCHED_RANKS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        code = _RANK_BOOT.format(root=root, src=os.path.join(root, "src"))
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(SCHED_RANKS)]
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code, str(r), tmp, dev.type], env=env,
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(SCHED_RANKS)]
+        try:
+            while any(q.poll() is None for q in procs):
+                if (time.perf_counter() - t0 > SCHED_RANKS_TIMEOUT
+                        or any(q.poll() not in (None, 0) for q in procs)):
+                    break
+                time.sleep(0.1)
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                q.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        if any(q.returncode != 0 for q in procs):
+            tails = "".join(f"\n--- rank {r} (rc {q.returncode}):\n"
+                            + open(os.path.join(tmp, f"rank{r}.log")).read()[-2000:]
+                            for r, q in enumerate(procs))
+            need(False, f"sched-22: a rank failed or outlasted {SCHED_RANKS_TIMEOUT} s:{tails}")
+        ranks = []
+        for r in range(SCHED_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for packed in (True, False):
+        what = f"sched-22 P={p} R={radius} {'packed' if packed else 'baseline'}"
+        gen = torch.Generator().manual_seed(0)
+        state = ds.init_state(p, [per] * p, quarter_speeds(p), radius, p * per, device=dev)
+        step = ds.make_round_fn(p, radius, max_steal, packed=packed, device=dev)
+        n_rounds = len(ranks[0][packed]["snaps"])
+        bit_equal = True
+        for rnd in range(n_rounds):
+            need(int((state.tail - state.head).sum()) > 0,
+                 f"{what}: the ranks ran {n_rounds} rounds, one process ended after {rnd}")
+            state = step(state, gen)
+            for r, res in enumerate(ranks):
+                want = sched_snapshot(torch, ds.SchedState(*(t[r * b:(r + 1) * b] for t in state)))
+                got = res[packed]["snaps"][rnd]
+                for k, w in want.items():
+                    g = got[k]
+                    if isinstance(w, str) or w.dtype.kind != "f":
+                        same = g == w if isinstance(w, str) else np.array_equal(g, w)
+                        need(same, f"{what}: round {rnd + 1}, rank {r}, field {k} differs")
+                    else:
+                        need(np.allclose(g, w, rtol=SCHED_RTOL, atol=0, equal_nan=True),
+                             f"{what}: round {rnd + 1}, rank {r}, field {k} beyond {SCHED_RTOL}")
+                        bit_equal &= np.array_equal(g, w, equal_nan=True)
+        need(int((state.tail - state.head).sum()) == 0,
+             f"{what}: the ranks ended after {n_rounds} rounds, one process goes on")
+        makespan = max(float(res[packed]["snaps"][-1]["clock"].max()) for res in ranks)
+        ms = ranks[0][packed]["ms"]
+        print(f"[{what}] {SCHED_RANKS} gloo processes on the card, {b} workers each == one "
+              f"process, every round: {n_rounds} rounds, makespan {makespan}, floats "
+              f"{'bit-equal' if bit_equal else f'within {SCHED_RTOL}'}; wall ms per round "
+              f"(rank 0, synchronized) median {float(np.median(ms)):.4f}, min "
+              f"{min(ms):.4f}; the group's {wall:.1f} s in all; {card}")
 
 
 def sched_card_vs_cpu(torch, ds, cfg, packed: bool, dev) -> None:

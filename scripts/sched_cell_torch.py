@@ -27,6 +27,16 @@ writes the whole record, the busiest kernels and host ops included, to
     python scripts/sched_cell_torch.py --out sched_cell_torch.json  # on the card
     python scripts/sched_cell_torch.py --device cpu
         # rehearsal on the CPU: host times only, device fields null
+
+``--dryrun [--variant baseline|packed]`` is instead the counterpart of
+scripts/sched_cell.py: one round of the multi-rank scheduler on a 1-D
+("workers",) mesh of a fake group of 256 ranks, one worker a rank, traced as
+rank 0 on fake tensors under ``OpCounter``.  It writes
+experiments/dryrun_torch/a2ws-sched__round__16x16__<variant>.json with the
+reference record's keys: the per-device collective bytes by kind, which must
+equal the reference's, and the eager ops' bytes and live bytes beside the
+reference's HLO figures (eager ops are not fused HLO, so those differ).
+Analytic, on a CPU: nothing in it is measured on a card.
 """
 
 from __future__ import annotations
@@ -54,6 +64,18 @@ SPEEDS = [s for s in (24.0, 16.0, 4.0, 1.0) for _ in range(P // 4)]
 WARM_ROUNDS = 5
 TIMED_ROUNDS = 60
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+# scripts/sched_cell.py's records (the reference's round lowered on 256
+# forced host devices of a CPU, analyze_hlo and memory_analysis), per device
+REFERENCE = {
+    "baseline": {"collectives": {"all-reduce": 8, "collective-permute": 1224,
+                                 "all-to-all": 17408},
+                 "bytes_per_device": 5_594_683, "live_bytes_per_device": 171_892},
+    "packed": {"collectives": {"all-reduce": 8, "collective-permute": 1224,
+                               "all-to-all": 8704},
+               "bytes_per_device": 5_731_943, "live_bytes_per_device": 172_916},
+}
+DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "experiments",
+                          "dryrun_torch")
 
 
 def round_bytes(p: int, radius: int, max_steal: int, cap: int, packed: bool) -> dict:
@@ -150,11 +172,87 @@ def measure(packed: bool, dev: torch.device) -> dict:
     return rec
 
 
+def dryrun_record(variant: str, p: int = P, radius: int = RADIUS, max_steal: int = MAX_STEAL,
+                  num_tasks: int = NUM_TASKS) -> dict:
+    """One round on a ("workers",) mesh of ``p`` ranks, one worker a rank,
+    traced as rank 0 of a fake group on fake tensors: the roofline record
+    with the reference's keys.  Makes the fake group if none exists."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.cells import roofline_terms
+    from repro_torch.launch.dryrun import init_fake_group
+    from repro_torch.launch.mesh import make_workers_mesh
+    from repro_torch.launch.op_analysis import OpCounter, local_bytes
+
+    init_fake_group(p)
+    mesh = make_workers_mesh(p)
+    speeds = [s for s in (24.0, 16.0, 4.0, 1.0) for _ in range(p // 4)]
+    base, rem = divmod(num_tasks, p)
+    counts = [base + (1 if i < rem else 0) for i in range(p)]
+    state = ds.init_state(p, counts, speeds, radius, num_tasks, device="cpu", mesh=mesh)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = ds.SchedState(*(mode.from_tensor(t) for t in state))
+        gumbel = mode.from_tensor(torch.zeros(state.queue.shape[0], 2 * radius + 1))
+        with OpCounter(local_bytes(fake)) as counter:
+            ds.a2ws_round(fake, radius=radius, max_steal=max_steal,
+                          packed=variant == "packed", gumbel=gumbel, mesh=mesh)
+    costs = counter.costs
+    terms = roofline_terms(costs.flops, costs.bytes, costs.coll_bytes)
+    return {
+        "arch": "a2ws-sched",
+        "shape": f"round_p{p}_r{radius}",
+        "kind": "sched",
+        "variant": variant,
+        "chips": p,
+        "mesh": "16x16",
+        "status": "ok",
+        "flops_per_device": costs.flops,
+        "bytes_per_device": costs.bytes,
+        "collective_bytes_per_device": costs.coll_bytes,
+        "collectives": {k: int(v) for k, v in costs.coll.items()},
+        **terms,
+        "dominant": max(terms, key=terms.get),
+        "live_bytes_per_device": int(counter.peak_bytes),
+        "ops_per_device": costs.ops,
+        "trace_s": time.perf_counter() - t0,
+        "reference": REFERENCE[variant] if (p, radius, max_steal, num_tasks) == (
+            P, RADIUS, MAX_STEAL, NUM_TASKS) else None,
+    }
+
+
+def dryrun(variants) -> None:
+    """Write and print the dry-run record of each variant; exit non-zero if
+    its collective bytes differ from the reference's."""
+    bad = []
+    for variant in variants:
+        rec = dryrun_record(variant)
+        path = os.path.join(DRYRUN_DIR, f"a2ws-sched__round__16x16__{variant}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(json.dumps({k: rec[k] for k in (
+            "variant", "collectives", "collective_bytes_per_device", "bytes_per_device",
+            "live_bytes_per_device", "ops_per_device", "t_collective", "dominant",
+            "reference")}))
+        if rec["collectives"] != REFERENCE[variant]["collectives"]:
+            bad.append(variant)
+    if bad:
+        raise SystemExit(f"collective bytes differ from the reference's: {bad}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", help="path of the JSON record")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="count one round on a fake group of 256 ranks instead")
+    ap.add_argument("--variant", choices=("baseline", "packed"),
+                    help="with --dryrun: this variant only (default both)")
     args = ap.parse_args()
+    if args.dryrun:
+        dryrun([args.variant] if args.variant else ["baseline", "packed"])
+        return
     dev = resolve_device(args.device)
     card = None
     if dev.type == "cuda":

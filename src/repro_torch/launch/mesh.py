@@ -15,7 +15,7 @@ import math
 
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "make_debug_mesh", "mesh_device_type"]
+__all__ = ["make_production_mesh", "make_debug_mesh", "make_workers_mesh", "mesh_device_type"]
 
 
 def mesh_device_type() -> str:
@@ -46,3 +46,9 @@ def make_debug_mesh(data: int, model: int, pod: int = 0):
     shape = (pod, data, model) if pod else (data, model)
     axes = ("pod", "data", "model") if pod else ("data", "model")
     return _mesh(shape, axes, "start that many ranks (torchrun, or gloo processes)")
+
+
+def make_workers_mesh(ranks: int, axis: str = "workers"):
+    """A 1-D mesh over the first ``ranks`` ranks, for the device scheduler
+    (``repro_torch.core.device_sched``), one block of workers a rank."""
+    return _mesh((ranks,), (axis,), "start that many ranks (torchrun, or gloo processes)")

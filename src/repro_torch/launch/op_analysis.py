@@ -13,7 +13,9 @@ by op while the cell's step runs once (on fake tensors for the dry-run) under
             metadata ops and waits move nothing)
   coll   -- payloads of the functional collectives by kind (result bytes;
             all-reduce counted 2x for its reduce-scatter + all-gather
-            phases), as ``repro/launch/cells.py`` counts them
+            phases), as ``repro/launch/cells.py`` counts them; an
+            all-to-all that sends to one rank of several is the
+            collective-permute it implements (``parallel.collectives.ppermute``)
 
 Only ops on plain (local) tensors count.  An op on DTensors reaches the
 mode first at the DTensor level, with the global shapes; the mode hands it
@@ -68,6 +70,11 @@ class OpCosts:
     @property
     def coll_bytes(self) -> float:
         return float(sum(self.coll.values()))
+
+
+def _one_peer(splits) -> bool:
+    """An all-to-all whose input goes to one rank of several: a permute."""
+    return len(splits) > 1 and sum(1 for k in splits if k) == 1
 
 
 def _plain_tensors(xs) -> list[torch.Tensor]:
@@ -133,6 +140,8 @@ class OpCounter(TorchDispatchMode):
         ns = func.namespace
         if ns in ("_c10d_functional", "_c10d_functional_autograd", "c10d_functional"):
             kind = _COLLECTIVES.get(name)
+            if kind == "all-to-all" and _one_peer(args[2]):
+                kind = "collective-permute"  # collectives.ppermute
             if kind is not None:
                 nbytes = sum(tensor_bytes(t) for t in _plain_tensors(out))
                 self.costs.coll[kind] = self.costs.coll.get(kind, 0) + nbytes * (

@@ -237,3 +237,106 @@ def restore_worker(rank, world, payload):
                                      if v.dtype == torch.bfloat16 else v.full_tensor().numpy()
                                      for k, v in flat.items()},
             "sharded": sum(any(p.is_shard() for p in v.placements) for v in flat.values())}
+
+
+def _sched_mesh(world):
+    from repro_torch.launch.mesh import make_workers_mesh
+
+    return make_workers_mesh(world)
+
+
+def _state_np(state):
+    return {k: v.numpy().copy() for k, v in state._asdict().items()}
+
+
+def _same_state(a, b) -> str | None:
+    """The first field in which two scheduler states differ bit for bit
+    (NaN equals NaN), else None."""
+    import torch
+
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        same = (x == y) | (x.isnan() & y.isnan()) if x.is_floating_point() else x == y
+        if x.shape != y.shape or not bool(same.all()):
+            return name
+    return None
+
+
+def sched_worker(rank, world, payload):
+    """The multi-rank device scheduler on a ("workers",) mesh of all ranks,
+    for each job of the payload (see ``tests/test_torch_device_sched_ranks.py``):
+
+    replay   rounds fed the given Gumbel draws (``[rounds, P, W]``, each rank
+             its rows); the whole state after every round
+    ranks_vs_one  rounds fed the given draws, beside the one-process
+             round on the same draws: every rank's block must equal its
+             rows bit for bit after every round; the whole final state, the
+             rounds and the makespan
+    seed     ``virtual_run(mesh=..., seed=s)`` against ``virtual_run(seed=s)``
+    split    the ValueErrors of a worker count the ranks do not divide
+    """
+    import torch
+
+    from repro_torch.core import device_sched as ds
+
+    mesh = _sched_mesh(world)
+    out = []
+    for job in payload:
+        kind, p, speeds, tasks, radius, max_steal = (job[k] for k in (
+            "kind", "p", "speeds", "tasks", "radius", "max_steal"))
+        packed = job.get("packed", True)
+        b, first = p // world, rank * (p // world)
+        counts = [tasks // p + (1 if i < tasks % p else 0) for i in range(p)]
+        if kind == "split":
+            errs = []
+            for make in (lambda: ds.init_state(p, counts, speeds, radius, tasks, "cpu", mesh=mesh),
+                         lambda: ds.make_round_fn(p, radius, max_steal, device="cpu", mesh=mesh),
+                         lambda: ds.virtual_run(p, speeds, tasks, radius, device="cpu", mesh=mesh)):
+                try:
+                    make()
+                    errs.append(None)
+                except ValueError as e:
+                    errs.append(str(e))
+            out.append(errs)
+            continue
+        if kind == "seed":
+            mine, rounds, makespan = ds.virtual_run(
+                p, speeds, tasks, radius, max_steal, seed=job["seed"], device="cpu",
+                packed=packed, mesh=mesh)
+            whole, want_rounds, want_ms = ds.virtual_run(
+                p, speeds, tasks, radius, max_steal, seed=job["seed"], device="cpu",
+                packed=packed)
+            got = ds.gather_state(mine, mesh)
+            out.append({"field": _same_state(got, whole), "rounds": (rounds, want_rounds),
+                        "makespan": (makespan, want_ms)})
+            continue
+        state = ds.init_state(p, counts, speeds, radius, tasks, "cpu", mesh=mesh)
+        step = ds.make_round_fn(p, radius, max_steal, packed=packed, device="cpu", mesh=mesh)
+        w = 2 * radius + 1
+        if kind == "replay":
+            states = [_state_np(ds.gather_state(state, mesh))]
+            for g in job["gumbel"]:
+                state = step(state, gumbel=torch.from_numpy(g[first:first + b]))
+                states.append(_state_np(ds.gather_state(state, mesh)))
+            out.append(states)
+            continue
+        assert kind == "ranks_vs_one", kind
+        whole = ds.init_state(p, counts, speeds, radius, tasks, "cpu")
+        one = ds.make_round_fn(p, radius, max_steal, packed=packed, device="cpu")
+        draws = job["gumbel"]
+        rounds = 0
+        while int((whole.tail - whole.head).sum()) > 0:
+            if rounds == len(draws):
+                raise AssertionError(f"the run outlasts its {len(draws)} rounds of draws")
+            g = torch.from_numpy(draws[rounds])
+            whole = one(whole, gumbel=g)
+            state = step(state, gumbel=g[first:first + b])
+            rounds += 1
+            rows = ds.SchedState(*(t[first:first + b] for t in whole))
+            field = _same_state(state, rows)
+            if field is not None:
+                raise AssertionError(f"rank {rank}: round {rounds}, field {field} differs")
+        final = ds.gather_state(state, mesh)
+        out.append({"rounds": rounds, "state": _state_np(final),
+                    "makespan": float(ds._over_axis(state.clock.max(), "max", mesh, "workers"))})
+    return out

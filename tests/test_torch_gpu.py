@@ -3,7 +3,8 @@ the serving path's SMOKE models (dense, MoE, MLA, Mamba-2, RG-LRU with local
 attention, enc-dec, VLM) against the same models on the CPU, a SMOKE
 training step and a HetDPTrainer gradient on the card against the CPU's,
 the device scheduler's run on the card against its run on the CPU, and the
-sharded step makers on a one-rank ``nccl`` mesh against the unsharded ones.
+sharded step makers and the multi-rank scheduler on a one-rank ``nccl`` mesh
+against the unsharded and one-process ones.
 
 Every test here carries the ``gpu`` marker and skips, with a reason, where
 ``torch.cuda.is_available()`` is false; the decision is taken inside the
@@ -356,6 +357,27 @@ def test_device_sched_on_card_matches_cpu(cuda, packed):
     assert got_rounds == want_rounds and got_ms == want_ms
     for name in ("queue", "head", "tail", "executed"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    assert int(got.executed.sum()) == 64 * 30
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "baseline"])
+def test_device_sched_on_one_nccl_rank_matches_one_process(one_rank_mesh, packed):
+    """P=64, R=12 on a 1-D ("workers",) mesh of the one-rank ``nccl`` group
+    (the all-reduces and all-to-alls cross NCCL; the ring wraps inside the
+    block) against the one-process card run on the same CPU generator's
+    draws: every field, the round count and the makespan equal."""
+    from repro_torch.launch.mesh import make_workers_mesh
+
+    speeds = [s for s in (24.0, 16.0, 4.0, 1.0) for _ in range(16)]
+    runs = [virtual_run(64, speeds, 64 * 30, 12, max_steal=16, device="cuda", packed=packed,
+                        generator=torch.Generator().manual_seed(0), mesh=mesh)
+            for mesh in (None, make_workers_mesh(1))]
+    (want, want_rounds, want_ms), (got, got_rounds, got_ms) = runs
+    assert got_rounds == want_rounds and got_ms == want_ms
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        same = (a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b
+        assert a.shape == b.shape and bool(same.all()), name
     assert int(got.executed.sum()) == 64 * 30
 
 

@@ -34,7 +34,6 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 from repro_torch.models.bridge import flatten, params_from_flat
-from repro_torch.roadmap import not_ported
 
 # SMOKE-size tensors: one intra-op thread is as fast, and leaves the other
 # test workers' cores (and their timing-sensitive threads) alone.
@@ -479,16 +478,14 @@ def test_mrope_through_the_model_matches():
 
 
 def test_not_ported_error_names_item():
-    err = not_ported("multi-rank device scheduler")
-    assert isinstance(err, NotImplementedError)
-    assert "ROADMAP.md §1, queue item 8, a multi-rank device scheduler" in str(err)
-    with pytest.raises(KeyError):  # sharding came with item 6: nothing names it now
-        not_ported("sharded serving")
-    with pytest.raises(KeyError):  # every block kind is ported: none has an item left
-        not_ported("xdec")
-    with pytest.raises(ValueError, match="unknown block kind"):
-        tblocks.block_params(None, tconfigs.get_smoke("phi4-mini-3.8b"), "conv",
-                             dtype=torch.float32, device=torch.device("meta"))
+    """Every part of the reference is ported, so no error names a roadmap
+    item any more: a block kind the registry does not know is refused with
+    a ValueError that names it, on the CPU and on ``meta`` alike."""
+    cfg = tconfigs.get_smoke("phi4-mini-3.8b")
+    for kind, device in (("conv", "meta"), ("xattn", "cpu")):
+        with pytest.raises(ValueError, match=f"unknown block kind {kind!r}"):
+            tblocks.block_params(None, cfg, kind, dtype=torch.float32,
+                                 device=torch.device(device))
 
 
 # ------------------------------------------------------- recurrent families

@@ -182,7 +182,8 @@ def test_port_runs_with_jax_and_reference_blocked():
     SMOKE models (moonshot, deepseek with MLA) and the recurrent ones
     (mamba2, recurrentgemma), prefills and decodes the enc-dec and VLM
     SMOKE models (seamless, qwen2-vl), runs the device scheduler at
-    P=8 on the CPU and one simulation, and trains a SMOKE model: one
+    P=8 on the CPU, in one process and on a one-rank ``gloo`` mesh, and one
+    simulation, and trains a SMOKE model: one
     ``make_train_step`` step and one ``HetDPTrainer`` step over 2 workers."""
     code = textwrap.dedent(
         """
@@ -234,6 +235,15 @@ def test_port_runs_with_jax_and_reference_blocked():
         state, rounds, makespan = device_sched.virtual_run(
             8, [24, 16, 8, 8, 4, 2, 1, 1], 192, 2, device="cpu")
         assert int(state.executed.sum()) == 192 and 0 < rounds < 4096
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_workers_mesh
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        ranked = device_sched.virtual_run(8, [24, 16, 8, 8, 4, 2, 1, 1], 192, 2, device="cpu",
+                                          mesh=make_workers_mesh(1))
+        dist.destroy_process_group()
+        assert ranked[1:] == (rounds, makespan)
+        assert all(torch.equal(getattr(ranked[0], k), getattr(state, k))
+                   for k in ("queue", "head", "tail", "executed"))
         res = simulator.simulate("a2ws", simulator.SimConfig(
             speeds=simulator.table2_speeds("C1"), num_tasks=48))
         assert sum(res.per_node_tasks) == 48

@@ -127,7 +127,10 @@ Phases (each prints its lines; any failure exits non-zero):
 20. shard   deepseek-v3-671b at full width and MLA_LAYERS layers, phase
             12's parameters, the same through ``serve_context``'s full-EP
             layout (``moe_apply`` under ``local_map``), the unsharded run's
-            routing replayed, at the MoE bounds.  Run at the end of phase 12.
+            routing replayed, at the MoE bounds; then MLA decode's split
+            softmax with the cache's slots split over the one-rank 'model'
+            axis against the unsplit attention (f32, MLA_SPLIT_REL_L2).
+            Run at the end of phase 12.
 21. sched-ranks  the multi-rank device scheduler on a 1-D ("workers",)
             mesh of the one-rank ``nccl`` group (phase 19's, made here if
             it is not there yet): ``virtual_run(mesh=...)`` at SCHED_CELL
@@ -142,7 +145,16 @@ Phases (each prints its lines; any failure exits non-zero):
             block after every round against its rows of the one-process
             card run on the same draws (integers equal, floats within
             SCHED_RTOL); wall ms per round.  A rank that fails or outlasts
-            SCHED_RANKS_TIMEOUT fails the phase.  Run after phase 21.
+            SCHED_RANKS_TIMEOUT fails the phase.  Run after phase 21;
+23. shard-train  one ``jit_train_step`` of phi4-mini-3.8b at full width and
+            TRAIN_F32_LAYERS layers in f32 on phase 19's one-rank mesh, its
+            parameters wrapped as DTensors (the vocab-parallel lookup and
+            cross-entropy, the pinned ``wo`` input), against the unsharded
+            port's step on the same microbatch: the loss, the gradient
+            (whole and every leaf) and the updated parameters (whole) within
+            a relative L2 of TRAIN_F32_REL_L2, and whether the gradients are
+            bit-equal; the step's ms beside the unsharded step's.  Run after
+            phase 17.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -208,6 +220,9 @@ BF16_LOGIT_REL_L2 = 0.05
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = 4        # 3 dense MLA layers + 1 MoE layer: 15.1 G parameters
+# Phase 20's split-softmax MLA attention against the unsplit one, f32: the
+# two sum and normalise in other orders (2.9e-7 on the CPU at deepseek's widths)
+MLA_SPLIT_REL_L2 = 1e-5
 # The f32 checks run before the bf16 model is drawn: moonshot at full width
 # and MOE_F32_LAYERS layers (5.6 GB), deepseek at its MLA_LAYERS (60.4 GB).
 MOE_F32_LAYERS = 2
@@ -858,10 +873,42 @@ def sharded_phase(torch, lm, cfg, params, dev, gen, tag: str, tols, pin=None) ->
               f"(host enqueue {u_host:.4f} ms), {s_ms / u_ms:.2f}x; bound {bms:.4f} ms "
               f"({_gb(nbytes)} at 3.35 TB/s, {by}-bound)")
         del caches, dcaches
+    if cfg.mla is not None:
+        mla_split_check(torch, cfg, mesh, dev, gen, tag)
     print(f"[{tag}] max_memory_allocated {_gb(torch.cuda.max_memory_allocated())} ({card})")
     del dparams, wrapped
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def mla_split_check(torch, cfg, mesh, dev, gen, tag: str) -> None:
+    """MLA decode's split softmax (``attention._mla_attend_split``) with the
+    one-rank mesh's 'model' axis splitting the compressed cache's slots
+    (the layout ``cache_pspecs`` gives a mesh whose 'model' axis divides
+    the cache), against the unsplit ``_mla_attend`` on the same f32 inputs
+    at ``cfg``'s widths, batch 8, a DECODE_CACHE-slot cache of which
+    PROMPT + 1 are valid: within a relative L2 of MLA_SPLIT_REL_L2."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models import attention
+
+    m, b, s = cfg.mla, 8, DECODE_CACHE
+    rows = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+    args = (rows(b, 1, cfg.n_heads, m.kv_lora_rank), rows(b, 1, cfg.n_heads, m.qk_rope_dim),
+            rows(b, s, m.kv_lora_rank), rows(b, s, m.qk_rope_dim))
+    valid = torch.arange(s, device=dev) <= PROMPT
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    split = [Replicate(), Shard(1)]  # ("data", "model"): slots over 'model'
+    d_args = [DTensor.from_local(t, mesh, [Replicate()] * 2 if i < 2 else split,
+                                 run_check=False) for i, t in enumerate(args)]
+    got = attention._mla_attend_split(*d_args, valid, scale).full_tensor()
+    want = attention._mla_attend(*args, valid, scale)
+    gap = float((got - want).double().norm() / want.double().norm())
+    print(f"[{tag}] MLA decode's split softmax, the cache's {s} slots split over 'model' "
+          f"({cfg.n_heads} heads, kv rank {m.kv_lora_rank}, batch {b}, f32): relative L2 "
+          f"{gap:.3e} to the unsplit attention (bound {MLA_SPLIT_REL_L2:g}), max|d| "
+          f"{(got - want).abs().max().item():.3e}")
+    need(gap <= MLA_SPLIT_REL_L2, f"{tag}: MLA split softmax differs by {gap}")
 
 
 def step_work(lm, cfg, leaves, bsz: int, seq: int, ctx: int, active: bool, enc_len: int = 0):
@@ -1650,6 +1697,7 @@ def train_phases(torch, np, gen, dev) -> None:
     torch.cuda.empty_cache()
     print(f"[train-check] f32: one microbatch {ms32:.2f} ms alone ({card}); "
           f"max_memory_allocated {_gb(torch.cuda.max_memory_allocated())}")
+    shard_train_phase(torch, lm, cfg32, dev)
 
     # 18. train-main: 16 layers in bf16 through the pool ----------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1762,6 +1810,77 @@ def train_phases(torch, np, gen, dev) -> None:
          f"driver: {report}")
     need(resumed == DRIVER_STEPS and same and more.steps_run == 2, "driver: resume failed")
     need(math.isfinite(report.final_loss) and math.isfinite(more.final_loss), "driver: loss")
+
+
+def shard_train_phase(torch, lm, cfg, dev, tag: str = "shard-train") -> None:
+    """Phase 23: one sharded ``jit_train_step`` of ``cfg`` on the one-rank
+    mesh against the unsharded step (see the module docstring)."""
+    from repro_torch.autodiff import tree_map, value_and_grad
+    from repro_torch.models.bridge import flatten
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.step import (
+        batch_shardings,
+        jit_train_step,
+        make_train_step,
+        train_shardings,
+    )
+
+    card = card_name()
+    mesh = one_rank_mesh(torch, dev)
+    ctx = sh.make_context(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = AdamWConfig()
+    plain = lm.init(cfg, torch.Generator(device=dev).manual_seed(2), device=dev,
+                    dtype=torch.float32)
+    mine = tree_map(torch.clone, plain)  # the sharded step writes into its own copy
+    plain_opt, mine_opt = adamw_init(plain, opt_cfg), adamw_init(mine, opt_cfg)
+    batch = train_microbatches(torch, cfg, dev, 1)[0]
+    step = jit_train_step(cfg, ctx, opt_cfg, batch)
+    p_sh, o_sh = (sh.distribute_tree(t, s) for t, s in
+                  zip((mine, mine_opt), train_shardings(cfg, ctx, opt_cfg)))
+    d_batch = sh.distribute_tree(batch, batch_shardings(batch, ctx))
+    @sh.mesh_region  # backward too meets plain tensors as replicated ones
+    def grads(params, batch, ctx=None):
+        return value_and_grad(lambda p, b: lm.loss_fn(p, b, cfg, ctx))(params, batch)
+
+    # the gradients, sharded and not, on the same parameters
+    (lu, _), gu = grads(plain, batch)
+    (ls, _), gs = grads(p_sh, d_batch, ctx=ctx)
+    gs = {k: v.full_tensor() for k, v in flatten(gs).items()}
+    g_rel, g_max, g_leaf, g_key = rel_l2(torch, gs, flatten(gu))
+    g_equal = all(torch.equal(gs[k], v) for k, v in flatten(gu).items())
+    loss_u, loss_s = float(lu), float(ls.full_tensor())
+    del gu, gs
+    print(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} layers, f32, on a one-rank mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({card}), {TRAIN_ROWS} x {TRAIN_SEQ} "
+          f"tokens: loss sharded {loss_s:.8f}, unsharded {loss_u:.8f}; gradients rel L2 "
+          f"{g_rel:.3e} (max|d| {g_max:.3e}; worst leaf {g_key} {g_leaf:.3e}; bound "
+          f"{TRAIN_F32_REL_L2:g}), bit-equal: {g_equal}")
+    need(abs(loss_s - loss_u) <= TRAIN_F32_REL_L2 * abs(loss_u), f"{tag}: losses differ")
+    need(g_rel <= TRAIN_F32_REL_L2 and g_leaf <= TRAIN_F32_REL_L2, f"{tag}: gradients differ")
+    # one step each, then their updated parameters
+    unsharded = make_train_step(cfg, opt_cfg)
+    new_u, _, mu = unsharded(plain, plain_opt, batch)
+    new_s, _, ms = step(p_sh, o_sh, batch)
+    p_rel, p_max, p_leaf, p_key = rel_l2(torch, {k: v.full_tensor() for k, v in
+                                                 flatten(new_s).items()}, flatten(new_u))
+    print(f"[{tag}] after one step: loss sharded {float(ms['loss']):.8f}, unsharded "
+          f"{float(mu['loss']):.8f}; updated parameters rel L2 {p_rel:.3e} (max|d| {p_max:.3e}; "
+          f"worst leaf {p_key} {p_leaf:.3e})")
+    # AdamW's first step divides each gradient element by its own size, so a
+    # leaf whose gradients sit near eps (the norm scales start at 0) shows
+    # the f32 gradient gap magnified: the whole tree is held, the worst leaf
+    # reported
+    need(p_rel <= TRAIN_F32_REL_L2, f"{tag}: updated parameters differ")
+    s_ms = timed_ms(torch, lambda: step(p_sh, o_sh, batch), iters=2, warmup=1)
+    u_ms = timed_ms(torch, lambda: unsharded(plain, plain_opt, batch), iters=2, warmup=1)
+    print(f"[{tag}] {card}: a train step (loss, gradients, AdamW) sharded {s_ms:.2f} ms, "
+          f"unsharded {u_ms:.2f} ms ({s_ms / u_ms:.2f}x), CUDA events; max_memory_allocated "
+          f"{_gb(torch.cuda.max_memory_allocated())}")
+    del plain, mine, plain_opt, mine_opt, p_sh, o_sh, new_u, new_s
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def encdec_times(torch, np, lm, cfg, params, leaves, dev, gen, enc, tag: str) -> None:

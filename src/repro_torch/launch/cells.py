@@ -72,11 +72,12 @@ def _fake_like(tree):
     return torch.empty(tree.shape, dtype=tree.dtype)
 
 
-def trace_cell(cfg: ModelConfig, shape: Shape, ctx: ParallelContext):
+def trace_cell(cfg: ModelConfig, shape: Shape, ctx: ParallelContext, breakdown: bool = False):
     """Trace the cell's step once.  Returns (costs, meta): the per-device
-    :class:`OpCosts` and a dict of the memory one device holds (parameters,
-    optimizer state, caches, batch, and the peak while the step runs) and
-    the seconds the trace took.
+    :class:`OpCosts` (with its per-op ``breakdown`` when asked, see
+    :class:`~repro_torch.launch.op_analysis.OpBreakdown`) and a dict of the
+    memory one device holds (parameters, optimizer state, caches, batch,
+    and the peak while the step runs) and the seconds the trace took.
 
     With a mesh, the step first runs once uncounted: DTensor infers each
     new op's layout by running it on global-shape tensors, and the counted
@@ -126,7 +127,8 @@ def trace_cell(cfg: ModelConfig, shape: Shape, ctx: ParallelContext):
         mem["batch_bytes"] = local_bytes(batch)
         if mesh is not None:
             fn(*args)
-        _, costs, peak = analyze_ops(fn, *args, base_bytes=local_bytes(args))
+        _, costs, peak = analyze_ops(fn, *args, base_bytes=local_bytes(args),
+                                     breakdown=breakdown)
     mem["peak_bytes"] = int(peak)
     return costs, {"memory": mem, "trace_s": round(time.time() - t0, 2)}
 

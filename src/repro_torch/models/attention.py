@@ -349,15 +349,62 @@ def mla_decode(
     w_uk = split_heads(p["w_uk"], h, m.qk_nope_dim)
     q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())  # [B,1,H,kvr]
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    s = (
-        torch.einsum("bqhr,bsr->bqhs", q_eff.to(cc.dtype).float(), cc.float())
-        + torch.einsum("bqhd,bsd->bqhs", q_rope.to(ckr.dtype).float(), ckr.float())
-    ) * scale
     valid = torch.arange(cc.shape[1], device=x.device) <= pos
-    s = s.masked_fill(~valid[None, None, None, :], _NEG)
-    a = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bqhs,bsr->bqhr", a.to(cc.dtype).float(), cc.float())  # [B,1,H,kvr]
+    split = split_over_sequence(cc) or split_over_sequence(ckr)
+    o_c = (_mla_attend_split if split else _mla_attend)(q_eff, q_rope, cc, ckr, valid, scale)
     w_uv = split_heads(p["w_uv"], h, m.v_dim)
     o = torch.einsum("bqhr,rhv->bqhv", o_c.to(w_uv.dtype).float(), w_uv.float())
     y = dense(o.reshape(b, 1, h * m.v_dim).to(x.dtype), p["wo"])
     return y, (cc, ckr)
+
+
+def _mla_attend(q_eff, q_rope, cc, ckr, valid, scale):
+    """The absorbed scores of :func:`mla_decode`'s query row (``q_eff`` [B,
+    1, H, kvr], ``q_rope`` [B, 1, H, rope_d]) against the compressed cache
+    (``cc`` [B, S, kvr], ``ckr`` [B, S, rope_d]) at the ``valid`` slots,
+    their softmax and the weighted ``c``: f32 ``o_c`` [B, 1, H, kvr]."""
+    s = (
+        torch.einsum("bqhr,bsr->bqhs", q_eff.to(cc.dtype).float(), cc.float())
+        + torch.einsum("bqhd,bsd->bqhs", q_rope.to(ckr.dtype).float(), ckr.float())
+    ) * scale
+    s = s.masked_fill(~valid[None, None, None, :], _NEG)
+    a = torch.softmax(s, dim=-1)
+    return torch.einsum("bqhs,bsr->bqhr", a.to(cc.dtype).float(), cc.float())
+
+
+def _mla_attend_split(q_eff, q_rope, cc, ckr, valid, scale):
+    """:func:`_mla_attend` against a compressed cache whose slots are split
+    over mesh axes (the layout ``cache_pspecs`` gives MLA's cache): each
+    rank scores its own slots with every head, and the pieces' max,
+    denominator and weighted ``c`` are combined across the split (a split
+    softmax, as :func:`_decode_attend_split` does for GQA), so no rank
+    gathers the scores or the cache.  f32 ``o_c`` [B, 1, H, kvr]."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import axis_names, shard_map_compat, spec_of
+
+    mesh = cc.device_mesh
+    c_spec, r_spec = spec_of(cc), spec_of(ckr)
+    if c_spec[:2] != r_spec[:2] or c_spec[2] is not None or r_spec[2] is not None:
+        raise ValueError(f"MLA caches split as {c_spec} and {r_spec}: the split softmax "
+                         "takes both split alike over batch and slots only")
+    names = axis_names(mesh)
+    split = tuple(names[i] for i, pl in enumerate(cc.placements) if pl.is_shard(1))
+    q_spec = (c_spec[0], None, None, None)
+
+    def local(qe, qr, c_l, r_l):
+        s_loc = c_l.shape[1]
+        first = coll.linear_index(mesh, split) * s_loc
+        s = (
+            torch.einsum("bqhr,bsr->bqhs", qe.to(c_l.dtype).float(), c_l.float())
+            + torch.einsum("bqhd,bsd->bqhs", qr.to(r_l.dtype).float(), r_l.float())
+        ) * scale
+        s = s.masked_fill(~valid[first:first + s_loc][None, None, None, :], _NEG)
+        m = coll.all_reduce(s.amax(-1), mesh, split, op="max")
+        pr = torch.exp(s - m[..., None])
+        den = coll.all_reduce(pr.sum(-1), mesh, split)
+        acc = coll.all_reduce(
+            torch.einsum("bqhs,bsr->bqhr", pr.to(c_l.dtype).float(), c_l.float()), mesh, split)
+        return acc / den[..., None]
+
+    return shard_map_compat(local, mesh=mesh, in_specs=(q_spec, q_spec, c_spec, r_spec),
+                            out_specs=q_spec)(q_eff, q_rope, cc, ckr)

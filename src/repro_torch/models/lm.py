@@ -50,7 +50,13 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
-from repro_torch.parallel.sharding import compute_layout, constrain, mesh_region
+from repro_torch.parallel.sharding import (
+    compute_layout,
+    constrain,
+    mesh_region,
+    vocab_log_prob,
+    vocab_lookup,
+)
 
 from . import blocks as blk
 from .bridge import flatten
@@ -298,7 +304,7 @@ def _gather_top(params, ctx):
 
 
 def _embed_tokens(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens]
+    x = vocab_lookup(params["embed"], tokens)
     scale = _embed_scale(cfg)
     if scale != 1.0:
         x = x * scale
@@ -389,9 +395,22 @@ def _mtp_trunk(params, h, batch, cfg: ModelConfig, aux):
     return x
 
 
+def _check_labels(labels, vocab: int) -> None:
+    """Raise on a label outside ``[0, vocab)`` in this rank's piece of a
+    DTensor ``labels`` (one look a step; fake tensors carry no values)."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(labels, DTensor):
+        return
+    local = labels.to_local()
+    if not is_fake(local) and bool(((local < 0) | (local >= vocab)).any()):
+        raise ValueError(f"a label outside the vocabulary [0, {vocab})")
+
+
 def _ce(logits, labels, mask):
     """Mean next-token cross-entropy over the ``mask``ed positions."""
-    ll = torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None].long())[..., 0]
+    ll = vocab_log_prob(logits, labels)
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
@@ -409,8 +428,7 @@ def _num_ce_chunks(cfg: ModelConfig, seq: int) -> int:
 
 def _ce_chunk(params, h_c, l_c, m_c, cfg: ModelConfig, ctx=None):
     """(masked negative log-likelihood sum, mask sum) of one sequence chunk."""
-    logp = torch.log_softmax(_logits(params, h_c, cfg, ctx), dim=-1)
-    ll = logp.gather(-1, l_c[..., None].long())[..., 0]
+    ll = vocab_log_prob(_logits(params, h_c, cfg, ctx), l_c)
     return (ll * m_c).sum(), m_c.sum()
 
 
@@ -420,8 +438,11 @@ def _ce_stream(params, h, labels, mask, cfg: ModelConfig, ctx=None):
     The head matmul + log-softmax + gather run one [B, S/nc] slab at a time,
     each under a checkpoint that keeps only its inputs, so the [B, S, vocab]
     f32 logits never exist: backward recomputes one slab's at a time.  The
-    chunks' sums are taken in the reference's scan order.
+    chunks' sums are taken in the reference's scan order.  On a mesh the
+    log-softmax is vocab-parallel (``vocab_log_prob``), where a label no
+    rank's columns hold would read as 0: such labels raise.
     """
+    _check_labels(labels, cfg.vocab)
     nc = _num_ce_chunks(cfg, h.shape[1])
     if nc <= 1:
         return _ce(_logits(params, h, cfg, ctx), labels, mask)

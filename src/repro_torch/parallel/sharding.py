@@ -57,6 +57,8 @@ __all__ = [
     "spec_for",
     "split_heads",
     "split_over_sequence",
+    "vocab_log_prob",
+    "vocab_lookup",
 ]
 
 # logical axis -> mesh axis (None = replicate)
@@ -523,13 +525,19 @@ def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
 
 
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
-    """``t`` [..., heads, head_dim] as [..., heads * head_dim], the inverse
-    of :func:`split_heads`.  On a DTensor the gradient comes back in the
-    result's layout: a row-parallel product's input gradient is split over
-    the merged dim, which a view back into heads that do not divide the
-    split cannot take."""
+    """``t`` [B, ..., heads, head_dim] as [B, ..., heads * head_dim], the
+    inverse of :func:`split_heads`, for the row-parallel output product.
+    On a DTensor the result is pinned (:func:`constrain`) to batch over the
+    DP axes and the merged dim over 'model', as GSPMD lays it out: where
+    the heads were padded to divide 'model' and gathered back, the product
+    and its weight gradient then run on each rank's slice of the merged
+    dim, not on the whole.  Its gradient comes back in that layout too,
+    which a view back into heads that do not divide the split cannot
+    take."""
     y = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
-    return _grad_in_layout(y) if _is_dtensor(y) else y
+    if not _is_dtensor(y):
+        return y
+    return constrain(y, make_context(y.device_mesh), ("dp",) + (None,) * (y.ndim - 2) + ("tp",))
 
 
 def over_batch_and_heads(fn, q: torch.Tensor, *kvs: torch.Tensor, **kwargs):
@@ -585,3 +593,86 @@ def over_batch(fn, xs: tuple, weights: tuple = (), n_out: int = 1):
     x_spec = (make_context(mesh).dp_spec(xs[0].shape[0]),)
     return shard_map_compat(fn, mesh=mesh, in_specs=(x_spec,) * len(xs) + ((),) * len(weights),
                             out_specs=x_spec if n_out == 1 else [x_spec] * n_out)(*xs, *weights)
+
+
+def _vocab_split(t: torch.Tensor, dim: int):
+    """(mesh, 'model' axes that split ``t``'s vocab dim ``dim`` in the
+    region, or ``()`` on a mesh without a 'model' axis of more than one
+    rank).  A vocab that 'model' does not divide raises: the op-by-op
+    path would gather it whole."""
+    mesh = t.device_mesh
+    sizes = axis_sizes(mesh)
+    if sizes.get("model", 1) == 1:
+        return mesh, ()
+    if t.shape[dim] % sizes["model"]:
+        raise ValueError(f"a vocab of {t.shape[dim]} does not split over 'model' "
+                         f"({sizes['model']} ranks)")
+    return mesh, ("model",)
+
+
+def _replicated(t: torch.Tensor, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor is the full value on
+    every rank."""
+    return t if _is_dtensor(t) else distribute(t, mesh, (None,) * t.ndim)
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` ([V, d] rows of ``tokens`` [B, ...]).  On a DTensor
+    table, Megatron's vocab-parallel lookup under :func:`shard_map_compat`:
+    each rank takes its rows of the table over 'model' and its batch rows
+    of the tokens, looks up the tokens in its own vocab range, zeroes the
+    others and sums the pieces over 'model'; no rank gathers the table.
+    The table's gradient is a scatter-add into each rank's own rows (the
+    tokens are split over the DP axes, so it is summed over those).  Plain
+    tensors index directly."""
+    if not _is_dtensor(table):
+        return table[tokens]
+    from . import collectives as coll
+
+    mesh, tp = _vocab_split(table, 0)
+    tokens = _replicated(tokens, mesh)
+    t_spec = (make_context(mesh).dp_spec(tokens.shape[0]),) + (None,) * (tokens.ndim - 1)
+
+    def local(tab, tok):
+        v_loc = tab.shape[0]
+        idx = tok - coll.linear_index(mesh, tp) * v_loc
+        hit = (idx >= 0) & (idx < v_loc)
+        rows = torch.where(hit[..., None], tab[idx.clamp(0, v_loc - 1)], 0)
+        return coll.all_reduce(rows, mesh, tp) if tp else rows
+
+    return shard_map_compat(local, mesh=mesh, in_specs=((tp[0] if tp else None, None), t_spec),
+                            out_specs=t_spec + (None,))(table, tokens)
+
+
+def vocab_log_prob(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``log_softmax(logits)`` at ``labels`` (logits [B, S, V], labels [B,
+    S]).  On DTensor logits, a vocab-parallel log-softmax under
+    :func:`shard_map_compat` on their ``("dp", None, "tp")`` layout: each
+    rank's max (no gradient) and sum of ``exp`` over its vocab columns,
+    all-reduced with max and sum over 'model', and the label's logit
+    picked by the rank whose columns hold it, all-reduced with sum; no
+    rank gathers the vocab.  Plain tensors take ``torch.log_softmax``."""
+    if not _is_dtensor(logits):
+        return torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None].long())[..., 0]
+    from . import collectives as coll
+
+    mesh, tp = _vocab_split(logits, -1)
+    labels = _replicated(labels, mesh)
+    b_spec = (make_context(mesh).dp_spec(logits.shape[0]), None)
+
+    def local(x, lab):
+        v_loc = x.shape[-1]
+        m = x.detach().amax(-1)
+        if tp:
+            m = coll.all_reduce(m, mesh, tp, op="max")
+        shifted = x - m[..., None]
+        se = shifted.exp().sum(-1)
+        idx = lab.long() - coll.linear_index(mesh, tp) * v_loc
+        hit = (idx >= 0) & (idx < v_loc)
+        picked = torch.where(hit, shifted.gather(-1, idx.clamp(0, v_loc - 1)[..., None])[..., 0], 0)
+        if tp:
+            se, picked = coll.all_reduce(se, mesh, tp), coll.all_reduce(picked, mesh, tp)
+        return picked - torch.log(se)
+
+    return shard_map_compat(local, mesh=mesh, in_specs=(b_spec + (tp[0] if tp else None,), b_spec),
+                            out_specs=b_spec)(logits, labels)

@@ -149,8 +149,13 @@ def serve_worker(rank, world, payload):
     for i in range(n):
         dl, sc = dec(params, nxt[:, i:i + 1], sc, s + i)
         out["sharded"]["decode"].append(dl)
-    return {side: {k: [_np(t) for t in v] if isinstance(v, list) else _np(v)
-                   for k, v in d.items()} for side, d in out.items()}
+    from repro_torch.autodiff import tree_leaves
+    from repro_torch.parallel.sharding import split_over_sequence
+
+    res = {side: {k: [_np(t) for t in v] if isinstance(v, list) else _np(v)
+                  for k, v in d.items()} for side, d in out.items()}
+    res["split_caches"] = sum(map(split_over_sequence, tree_leaves(sc)))
+    return res
 
 
 def train_worker(rank, world, payload):
@@ -339,4 +344,64 @@ def sched_worker(rank, world, payload):
         final = ds.gather_state(state, mesh)
         out.append({"rounds": rounds, "state": _state_np(final),
                     "makespan": float(ds._over_axis(state.clock.max(), "max", mesh, "workers"))})
+    return out
+
+
+def vocab_worker(rank, world, payload):
+    """The vocab-parallel lookup and log-softmax (``parallel.sharding``'s
+    ``vocab_lookup``, ``vocab_log_prob``) on the payload's mesh, the table
+    and the logits split over 'model' by vocab and the rows over 'data',
+    against the same functions on plain tensors: values and gradients
+    (whole), the table gradient's placements, and the ValueErrors of a
+    vocab that 'model' does not divide and of a label outside the
+    vocabulary (through ``lm.loss_fn``)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import distribute, distribute_tree, vocab_log_prob, \
+        vocab_lookup
+    from repro_torch.train.step import batch_shardings, train_shardings
+    from repro_torch.optim.adamw import AdamWConfig
+
+    ctx = _mesh(payload)
+    mesh = ctx.mesh
+    table, tokens = (torch.from_numpy(payload[k]) for k in ("table", "tokens"))
+    logits, labels = (torch.from_numpy(payload[k]) for k in ("logits", "labels"))
+    out = {}
+    for name, fn, x, idx, spec in (
+            ("lookup", vocab_lookup, table, tokens, ("model", None)),
+            ("log_prob", vocab_log_prob, logits, labels, ("data", None, "model"))):
+        plain = x.clone().requires_grad_()
+        y = fn(plain, idx)
+        (g_plain,) = torch.autograd.grad((y * y).sum(), plain)
+        with implicit_replication():
+            dx = distribute(x, mesh, spec).requires_grad_()
+            dy = fn(dx, distribute(idx, mesh, ("data",) + (None,) * (idx.ndim - 1)))
+            (g,) = torch.autograd.grad((dy * dy).sum(), dx)
+        out[name] = {"plain": _np(y), "sharded": _np(dy), "grad_plain": _np(g_plain),
+                     "grad": _np(g), "grad_placements": [repr(p) for p in g.placements]}
+    errs = {}
+    odd = distribute(table[:-1].contiguous(), mesh, (None, None))  # 255 rows
+    for what, call in (("lookup", lambda: vocab_lookup(odd, tokens)),
+                       ("log_prob", lambda: vocab_log_prob(
+                           distribute(logits[..., :-1].contiguous(), mesh, (None,) * 3), labels))):
+        try:
+            with implicit_replication():
+                call()
+            errs[what] = None
+        except ValueError as e:
+            errs[what] = str(e)
+    cfg = get_smoke("phi4-mini-3.8b").with_(dtype="float32")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    params = distribute_tree(params, train_shardings(cfg, ctx, AdamWConfig())[0])
+    toks = torch.from_numpy(payload["tokens"][:, :8].copy())
+    bad = {"tokens": toks, "labels": toks.clone().fill_(cfg.vocab)}
+    try:
+        lm.loss_fn(params, distribute_tree(bad, batch_shardings(bad, ctx)), cfg, ctx)
+        errs["label"] = None
+    except ValueError as e:
+        errs["label"] = str(e)
+    out["errors"] = errs
     return out

@@ -164,14 +164,17 @@ def test_one_rank_flops_match_reference(arch, kind):
     ("mamba2-2.7b", "prefill", 1.05),
     ("seamless-m4t-medium", "train", 1.05),
     ("moonshot-v1-16b-a3b", "train", 1.05),
-    # SMOKE's 6 query heads are padded to 8 over 'model': no part of the
-    # step may do more than that 8/6 share
-    ("phi4-mini-3.8b", "train", 8 / 6),
+    # SMOKE's 6 query heads are padded to 8 over 'model', so its attention
+    # core does 8/6 of the heads' work; the rest splits.  It reads 1.2634
+    # (1.282 while ``wo``'s gradient ran whole on every rank): 0.5% margin.
+    ("phi4-mini-3.8b", "train", 1.27),
 ])
 def test_per_device_flops_split_over_the_mesh(arch, kind, bound):
     """On a fake 2x4 mesh, 8 x the per-device FLOPs against the one-rank
     count: no work lost, and little done twice (a gradient meets its
-    weight in the weight's layout, not gathered whole)."""
+    weight in the weight's layout, not gathered whole; the output
+    projection's input is split over 'model' where padded heads were
+    gathered back)."""
     one = _one_rank(arch, kind)["flops_per_device"]
     ratio = 8 * _run_cell(arch, kind, (2, 4))["flops"] / one
     assert 1.0 - 1e-9 <= ratio <= bound, ratio

@@ -76,13 +76,23 @@ def test_sharded_serving_matches(arch, tmp_path):
     check_sharded_serving(arch, (2, 2, 0), tmp_path)
 
 
-def check_sharded_serving(arch, mesh, tmp_path):
-    """The serving check on ``mesh`` (data, model, pod)."""
+def test_split_mla_decode_matches(tmp_path):
+    """deepseek on 2x2 with a cache of S0 + 4 = 20 slots, which 'model'
+    divides: the compressed MLA cache is split over its slots, and
+    decode's split softmax (``attention._mla_attend_split``) holds the
+    serving check's bounds."""
+    out = check_sharded_serving("deepseek-v3-671b", (2, 2, 0), tmp_path, steps=4)
+    assert out["split_caches"] > 0
+
+
+def check_sharded_serving(arch, mesh, tmp_path, steps=N):
+    """The serving check on ``mesh`` (data, model, pod), ``steps`` decode
+    steps; returns the ranks' output."""
     cfg = _cfg(arch)
     jp = _params(cfg)
     r = np.random.default_rng(1)
     batch = _prompt(cfg, r)
-    nxt = r.integers(0, cfg.vocab, (B, N)).astype(np.int64)
+    nxt = r.integers(0, cfg.vocab, (B, steps)).astype(np.int64)
     out = run_group(8 if mesh[2] else 4, "_torch_dist:serve_worker",
                     {"arch": arch, "cf": cfg.moe and cfg.moe.capacity_factor, "mesh": mesh,
                      "params": _flatten(jp), "batch": batch, "next": nxt, "s0": S0}, tmp_path)
@@ -90,9 +100,9 @@ def check_sharded_serving(arch, mesh, tmp_path):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     want = {"forward": jlm.forward(jp, jb, cfg)[0]}
     want["prefill"], caches = jlm.prefill(jp, jb, cfg)
-    caches = jlm.pad_caches(caches, cfg, S0 + N)
+    caches = jlm.pad_caches(caches, cfg, S0 + steps)
     want["decode"] = []
-    for i in range(N):
+    for i in range(steps):
         logits, caches = jlm.decode_step(jp, jnp.asarray(nxt[:, i:i + 1], jnp.int32), caches,
                                          jnp.int32(S0 + i), cfg)
         want["decode"].append(logits)
@@ -103,15 +113,28 @@ def check_sharded_serving(arch, mesh, tmp_path):
             _close(sharded, plain, PORT_TOL, f"{k} {i}: sharded vs unsharded", cfg.vocab)
             _close(plain, ref, REF_TOL, f"{k} {i}: unsharded vs reference", cfg.vocab)
             _close(sharded, ref, REF_TOL, f"{k} {i}: sharded vs reference", cfg.vocab)
+    return out
 
 
 @pytest.mark.parametrize("mesh", [(2, 2, 0), (2, 2, 2)], ids=["2x2", "2x2x2"])
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "moonshot-v1-16b-a3b"])
 def test_sharded_train_step_matches_reference(arch, mesh, tmp_path):
     """``jit_train_step`` (FSDP over 'data', TP over 'model', the pod axis
-    data-parallel) over two steps with the cosine schedule: loss,
-    ``grad_norm`` and every parameter leaf within 1e-4 of the reference's
-    mesh-free step."""
+    data-parallel; the vocab-parallel lookup and cross-entropy) over two
+    steps with the cosine schedule: loss, ``grad_norm`` and every parameter
+    leaf within 1e-4 of the reference's mesh-free step."""
+    check_sharded_train_step(arch, mesh, tmp_path)
+
+
+def test_tied_table_train_step_matches_reference(tmp_path):
+    """recurrentgemma ties its head to the embedding table: on 2x2 the
+    vocab-parallel lookup's gradient and the head product's meet in the
+    table's layout (rows over 'model'), and the step holds the bounds of
+    ``test_sharded_train_step_matches_reference``."""
+    check_sharded_train_step("recurrentgemma-2b", (2, 2, 0), tmp_path)
+
+
+def check_sharded_train_step(arch, mesh, tmp_path):
     cfg = _cfg(arch)
     jp = _params(cfg)
     sched = {"warmup": 1, "total": 4}

@@ -154,7 +154,15 @@ Phases (each prints its lines; any failure exits non-zero):
             (whole and every leaf) and the updated parameters (whole) within
             a relative L2 of TRAIN_F32_REL_L2, and whether the gradients are
             bit-equal; the step's ms beside the unsharded step's.  Run after
-            phase 17.
+            phase 17;
+24. shard-train-ssm  phase 23 for mamba2-2.7b at full width (d_model 2560,
+            80 heads of 64, one group, state 128) and TRAIN_F32_LAYERS
+            layers in f32: on the one-rank mesh its mixer runs per rank
+            (``ssm._mixer`` under ``local_map``, 'model' of one rank: the
+            trivial split), held to the unsharded step by phase 23's
+            bounds, but for its per-head gradient leaves (LEAF_REL_L2);
+            its ms, sharded and unsharded, and peak memory beside the
+            card's name and power limit.  Run after phase 23.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -334,6 +342,14 @@ TRAIN_PACE = 1.0
 # The pool's combined gradient vs one worker's in f32, over the whole tree
 # and over each leaf alone (the embedding and head dominate the whole tree)
 TRAIN_F32_REL_L2 = 1e-5
+# Phases 23-24 hold mamba2's per-head gradient leaves ([layers, 80]: a_log,
+# dt_bias, d_skip) to the bound the CPU tests hold every leaf of the port's
+# gradient to against the reference's (tests/test_torch_train.py, 1e-4), the
+# other leaves to TRAIN_F32_REL_L2.  Each entry sums one head's gradient over
+# every token, terms that cancel: with the whole tree 7.766e-07 apart, the
+# sharded step's a_log read 1.907e-05 and its dt_bias 1.238e-05 from the
+# unsharded step's on the card.
+LEAF_REL_L2 = {"ssm/a_log": 1e-4, "ssm/dt_bias": 1e-4, "ssm/d_skip": 1e-4}
 # The same comparison in bf16.  Each worker sums its gradients in bf16 in the
 # order its tasks ran, so another assignment rounds at other places.
 # scripts/het_dp_bf16_gap.py on the CPU, the reference's own HetDPTrainer
@@ -1698,6 +1714,10 @@ def train_phases(torch, np, gen, dev) -> None:
     print(f"[train-check] f32: one microbatch {ms32:.2f} ms alone ({card}); "
           f"max_memory_allocated {_gb(torch.cuda.max_memory_allocated())}")
     shard_train_phase(torch, lm, cfg32, dev)
+    # 24. shard-train-ssm: mamba2's mixer per rank on the same mesh
+    shard_train_phase(torch, lm, get_config(SSM_ARCH).with_(n_layers=TRAIN_F32_LAYERS,
+                                                            dtype="float32"),
+                      dev, tag="shard-train-ssm")
 
     # 18. train-main: 16 layers in bf16 through the pool ----------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1813,8 +1833,10 @@ def train_phases(torch, np, gen, dev) -> None:
 
 
 def shard_train_phase(torch, lm, cfg, dev, tag: str = "shard-train") -> None:
-    """Phase 23: one sharded ``jit_train_step`` of ``cfg`` on the one-rank
-    mesh against the unsharded step (see the module docstring)."""
+    """Phases 23 and 24: one sharded ``jit_train_step`` of ``cfg`` on the
+    one-rank mesh against the unsharded step (see the module docstring).
+    A gradient leaf whose name ends in a key of LEAF_REL_L2 is held to that
+    key's bound, the others to TRAIN_F32_REL_L2."""
     from repro_torch.autodiff import tree_map, value_and_grad
     from repro_torch.models.bridge import flatten
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -1847,9 +1869,14 @@ def shard_train_phase(torch, lm, cfg, dev, tag: str = "shard-train") -> None:
     # the gradients, sharded and not, on the same parameters
     (lu, _), gu = grads(plain, batch)
     (ls, _), gs = grads(p_sh, d_batch, ctx=ctx)
-    gs = {k: v.full_tensor() for k, v in flatten(gs).items()}
-    g_rel, g_max, g_leaf, g_key = rel_l2(torch, gs, flatten(gu))
-    g_equal = all(torch.equal(gs[k], v) for k, v in flatten(gu).items())
+    gs, gu = {k: v.full_tensor() for k, v in flatten(gs).items()}, flatten(gu)
+    g_rel, g_max, _, _ = rel_l2(torch, gs, gu)
+    own = {k: next(b for end, b in LEAF_REL_L2.items() if k.endswith(end)) for k in gu
+           if k.endswith(tuple(LEAF_REL_L2))}
+    rest = [k for k in gu if k not in own]
+    _, _, g_leaf, g_key = rel_l2(torch, {k: gs[k] for k in rest}, {k: gu[k] for k in rest})
+    held = {k: (rel_l2(torch, {k: gs[k]}, {k: gu[k]})[0], b) for k, b in own.items()}
+    g_equal = all(torch.equal(gs[k], v) for k, v in gu.items())
     loss_u, loss_s = float(lu), float(ls.full_tensor())
     del gu, gs
     print(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} layers, f32, on a one-rank mesh "
@@ -1857,8 +1884,11 @@ def shard_train_phase(torch, lm, cfg, dev, tag: str = "shard-train") -> None:
           f"tokens: loss sharded {loss_s:.8f}, unsharded {loss_u:.8f}; gradients rel L2 "
           f"{g_rel:.3e} (max|d| {g_max:.3e}; worst leaf {g_key} {g_leaf:.3e}; bound "
           f"{TRAIN_F32_REL_L2:g}), bit-equal: {g_equal}")
+    for k, (gap, bound) in held.items():
+        print(f"[{tag}] leaf {k}: rel L2 {gap:.3e} (its bound {bound:g})")
     need(abs(loss_s - loss_u) <= TRAIN_F32_REL_L2 * abs(loss_u), f"{tag}: losses differ")
-    need(g_rel <= TRAIN_F32_REL_L2 and g_leaf <= TRAIN_F32_REL_L2, f"{tag}: gradients differ")
+    need(g_rel <= TRAIN_F32_REL_L2 and g_leaf <= TRAIN_F32_REL_L2
+         and all(gap <= bound for gap, bound in held.values()), f"{tag}: gradients differ")
     # one step each, then their updated parameters
     unsharded = make_train_step(cfg, opt_cfg)
     new_u, _, mu = unsharded(plain, plain_opt, batch)

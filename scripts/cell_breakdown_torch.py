@@ -18,6 +18,13 @@ record as JSON on its last line.
     PYTHONPATH=src python scripts/cell_breakdown_torch.py phi4-mini-3.8b decode_32k
     PYTHONPATH=src python scripts/cell_breakdown_torch.py phi4-mini-3.8b train_4k \\
         --multi-pod --layers 2 --top 15
+    PYTHONPATH=src python scripts/cell_breakdown_torch.py deepseek-v3-671b decode_32k \\
+        --layers 4 --world 512
+
+``--world`` makes the fake group larger than the mesh, as the dry-run's
+512-rank group holds the 16x16 mesh.  The JSON line also lists the
+collectives and the FLOP-counting ops by (op, argument shapes), and the
+collective bytes by line.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import argparse
 import json
 import os
 import sys
+
+import torch.distributed
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 
@@ -72,6 +81,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the decoder to this many layers (0: the config's depth)")
+    ap.add_argument("--world", type=int, default=0,
+                    help="ranks of the fake group (0: the mesh's, 256 or 512)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -82,12 +93,13 @@ def main(argv=None) -> int:
     if not ok:
         print(f"{args.arch} x {args.shape} is skipped: {reason}")
         return 1
-    init_fake_group(512 if args.multi_pod else 256)
+    init_fake_group(args.world or (512 if args.multi_pod else 256))
     mesh = make_production_mesh(multi_pod=args.multi_pod)
     costs, meta = trace_cell(cfg, shape, make_context(mesh), breakdown=True)
     rec = analyze(costs, meta, cfg, shape, mesh.size())
     tag = "2x16x16" if args.multi_pod else "16x16"
-    print(f"=== {args.arch} {args.shape} on {tag} ({mesh.size()} ranks), {cfg.n_layers} layers; "
+    print(f"=== {args.arch} {args.shape} on {tag} ({mesh.size()} of "
+          f"{torch.distributed.get_world_size()} ranks), {cfg.n_layers} layers; "
           f"traced in {meta['trace_s']} s ===")
     print(f"flops {_fmt(costs.flops)}  bytes {_fmt(costs.bytes)}  collective bytes "
           f"{_fmt(costs.coll_bytes)} {rec['collectives']}  live bytes "
@@ -100,14 +112,19 @@ def main(argv=None) -> int:
         for t in bd)
     print(f"each key's sums equal the record: {sums_equal}")
     print_tables(bd, args.top)
-    coll_ops = [{"op": k[0], "shapes": [list(s) for s in k[1]], "calls": v.calls, "coll": v.coll}
-                for k, v in bd["op"].items() if v.coll]
+    def ops(metric):
+        return [{"op": k[0], "shapes": [list(s) for s in k[1]], "calls": v.calls,
+                 metric: getattr(v, metric)} for k, v in bd["op"].items() if getattr(v, metric)]
+
+    coll_sites = [{"site": k, "calls": v.calls, "coll": v.coll}
+                  for k, v in bd["site"].items() if v.coll]
     print()
     print(json.dumps({
         "arch": args.arch, "shape": args.shape, "mesh": tag, "layers": cfg.n_layers,
         "flops": costs.flops, "bytes": costs.bytes, "coll": costs.coll_bytes,
         "collectives": rec["collectives"], "live": rec["live_bytes_per_device"],
-        "sums_equal": sums_equal, "collective_ops": coll_ops}))
+        "sums_equal": sums_equal, "collective_ops": ops("coll"), "flop_ops": ops("flops"),
+        "collective_sites": coll_sites}))
     return 0 if sums_equal else 1
 
 

@@ -7,6 +7,9 @@ leading 'pod' axis (512 ranks).  A mesh takes the first ranks of the
 default process group, which must hold enough of them: on real cards one
 rank a card (``torchrun`` with ``nccl``), on the CPU ``gloo``, and for the
 dry-run a fake group of 256 or 512 ranks (``repro_torch.launch.dryrun``).
+Every rank makes a mesh's groups together, in the same order: its dims',
+and the flattened group of each set of two or more of them, which a
+collective over several axes runs on (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,11 @@ def _mesh(shape: tuple[int, ...], axes: tuple[str, ...], hint: str):
     have = dist.get_world_size() if dist.is_initialized() else 0
     if have < need:
         raise RuntimeError(f"mesh {shape} needs {need} ranks, found {have} -- {hint}")
-    return init_device_mesh(mesh_device_type(), shape, mesh_dim_names=axes)
+    from repro_torch.parallel.collectives import flatten_groups
+
+    mesh = init_device_mesh(mesh_device_type(), shape, mesh_dim_names=axes)
+    flatten_groups(mesh)
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -22,15 +22,18 @@ Pallas kernel here; these are plain PyTorch ops.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (
     axis_sizes,
     gather_last,
     make_context,
+    partial_sums,
     shard_map_compat,
 )
 
@@ -103,10 +106,17 @@ def _split_proj(zxbcdt, d_in, g, n, h):
     return z, x, b, c, dt
 
 
-def _gated_norm(y, z, gamma, eps):
+def _gated_norm(y, z, gamma, eps, mesh=None):
+    """``y * silu(z)`` normalized by its RMS over the last dim.  With
+    ``mesh`` (inside the mixer's region), the last dim is this rank's share
+    of it over 'model': the squares are summed over the ranks."""
     dt = y.dtype
     y = y.float() * F.silu(z.float())
-    var = (y * y).mean(-1, keepdim=True)
+    if mesh is None:
+        var = (y * y).mean(-1, keepdim=True)
+    else:
+        total = coll.sum_shares((y * y).sum(-1, keepdim=True), mesh, ("model",))
+        var = total / (y.shape[-1] * coll.axis_size(mesh, "model"))
     return (y * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(dt)
 
 
@@ -125,8 +135,11 @@ def _ssd(x, bmat, cmat, dt, a, d_skip, *, q: int):
 
     cum = torch.cumsum(dtc * a, dim=2)  # [B, NC, Q, H]
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, NC, Q(t), Q(s), H]
-    tri = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
-    ldecay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # exp of the causal triangle only: the reference's where(tri, exp(seg),
+    # 0) has the same values, but with 80 heads the other triangle's sums
+    # overflow, and its gradient there is 0 * inf, NaN
+    upper = torch.ones(q, q, dtype=torch.bool, device=x.device).triu(1)
+    ldecay = torch.exp(seg.masked_fill(upper[None, None, :, :, None], -math.inf))
 
     cb = torch.einsum("bcqgn,bcsgn->bcqsg", ch, bh)  # [B, NC, Q, Q, G]
     m = cb[..., None] * ldecay.reshape(bsz, nc, q, q, g, hpg) * \
@@ -174,34 +187,122 @@ def _ssd_region(x, bmat, cmat, dt, a, d_skip, *, q: int):
     )(x, bmat, cmat, dt, a, d_skip)
 
 
+_WEIGHTS = ("in_proj", "conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm", "out_proj")
+
+
+def _take(w: torch.Tensor, widths: tuple, tp: int, r: int) -> torch.Tensor:
+    """Rank ``r``'s columns of ``w``'s packed last dim (pieces of
+    ``widths``, in order): the ``r``-th of ``tp`` equal slices of each."""
+    if tp == 1:
+        return w
+    idx = [torch.arange(k // tp, device=w.device) + start + r * (k // tp)
+           for start, k in zip(np.cumsum((0,) + widths[:-1]).tolist(), widths)]
+    return w.index_select(-1, torch.cat(idx))
+
+
+def _gather_bc(bc: torch.Tensor, mesh) -> torch.Tensor:
+    """``bc`` [B, S, 2 * k], this rank's k columns of B then of C, as [B,
+    S, 2 * k * tp]: all of B, then all of C (one all-gather over
+    'model')."""
+    tp = coll.axis_size(mesh, "model")
+    got = coll.all_gather(bc, mesh, ("model",))  # [tp * B, S, 2k], rank-major
+    got = got.view(tp, *bc.shape[:-1], 2, bc.shape[-1] // 2).movedim(0, -2)
+    return got.reshape(*bc.shape[:-1], bc.shape[-1] * tp)
+
+
+def _mixer(xin, in_proj, conv_w, conv_b, dt_bias, a_log, d_skip, norm, out_proj, *,
+           cfg: ModelConfig, mesh=None, return_cache: bool = False):
+    """The mixer.  With ``mesh`` it runs inside ``shard_map_compat`` on one
+    rank's pieces: ``xin`` its batch rows, ``in_proj``, ``conv_w`` and
+    ``conv_b`` whole, the rest its heads' (``norm``, ``out_proj``'s rows:
+    its share of d_in).  It projects its columns only -- its heads of z, x
+    and dt and its 1/tp of B and of C -- runs the conv on its channels,
+    gathers B and C whole (one group: every head reads them) or keeps its
+    groups' (groups split over 'model'), scans its heads, sums the gated
+    norm's squares over the ranks and returns the output product's partial
+    sums over 'model'.  Returns [out], and with the cache [out, state, the
+    x, B and C rows of the conv tail]."""
+    s: SSMConfig = cfg.ssm
+    bsz, slen, _ = xin.shape
+    d_in, h, g, n, pdim, _ = _dims(cfg)
+    assert slen % s.chunk == 0, (slen, s.chunk)
+    tp = 1 if mesh is None else coll.axis_size(mesh, "model")
+    r = 0 if mesh is None else coll.axis_rank(mesh, "model")
+    dl, gnl = d_in // tp, g * n // tp
+    gather = tp > 1 and g % tp != 0
+
+    zxbcdt = gather_last(xin @ _take(in_proj, (d_in, d_in, g * n, g * n, h), tp, r))
+    z, xbc_pre, dt = zxbcdt[..., :dl], zxbcdt[..., dl : 2 * dl + 2 * gnl], \
+        zxbcdt[..., 2 * dl + 2 * gnl :]
+    widths = (d_in, g * n, g * n)
+    xbc = F.silu(_conv1d(xbc_pre, _take(conv_w, widths, tp, r), _take(conv_b, widths, tp, r)))
+    x, bc = xbc[..., :dl], xbc[..., dl:]
+    if gather:
+        bc = _gather_bc(bc, mesh)
+    bmat, cmat = bc.chunk(2, -1)
+    dt = F.softplus(dt.float() + dt_bias)  # [B, S, heads]
+    a = -torch.exp(a_log)  # [heads]
+
+    gl = bmat.shape[-1] // n
+    y, hstate = _ssd_region(x.reshape(bsz, slen, -1, pdim), bmat.reshape(bsz, slen, gl, n),
+                            cmat.reshape(bsz, slen, gl, n), dt, a, d_skip, q=s.chunk)
+    y = y.reshape(bsz, slen, dl).to(xin.dtype)
+    y = _gated_norm(y, z, norm, cfg.norm_eps, mesh)
+    out = y @ out_proj
+    if not return_cache:
+        return [out]
+    tail = xbc_pre[:, -(s.d_conv - 1) :]
+    x_tail, bc_tail = tail[..., :dl], tail[..., dl:]
+    if gather:
+        bc_tail = _gather_bc(bc_tail, mesh)
+    return [out, hstate, x_tail, *bc_tail.chunk(2, -1)]
+
+
+def _region_mesh(xin, cfg: ModelConfig):
+    """The mesh the mixer runs on per rank, or ``None``: a plain ``xin``,
+    a mesh without 'model', or heads that do not split over it whole (with
+    one group, its B and C columns must split too) run op by op."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(xin, DTensor) or "model" not in axis_sizes(xin.device_mesh):
+        return None
+    tp = axis_sizes(xin.device_mesh)["model"]
+    _, h, g, n, _, _ = _dims(cfg)
+    ok = h % tp == 0 and (g % tp == 0 or (g == 1 and n % tp == 0))
+    return xin.device_mesh if ok else None
+
+
 def ssm_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
     """Chunked SSD over the full sequence.  xin [B, S, d]; S a multiple of
     the chunk.  With ``return_cache`` also the decode cache: the f32 state
-    after the last token and the last ``d_conv - 1`` pre-conv rows."""
-    s: SSMConfig = cfg.ssm
-    bsz, slen, _ = xin.shape
-    d_in, h, g, n, pdim, conv_ch = _dims(cfg)
-    q = s.chunk
-    assert slen % q == 0, (slen, q)
-    nc, hpg = slen // q, h // g
+    after the last token and the last ``d_conv - 1`` pre-conv rows.
 
-    zxbcdt = gather_last(xin @ p["in_proj"])
-    z, _, _, _, dt = _split_proj(zxbcdt, d_in, g, n, h)
-    xbc_pre = zxbcdt[..., d_in : d_in + conv_ch]  # [x, B, C] as packed: the cache tail
-    xbc = F.silu(_conv1d(xbc_pre, p["conv_w"], p["conv_b"]))
-    x, bmat, cmat = xbc[..., :d_in], xbc[..., d_in : d_in + g * n], xbc[..., d_in + g * n :]
-    dt = F.softplus(dt.float() + p["dt_bias"])  # [B, S, H]
-    a = -torch.exp(p["a_log"])  # [H]
-
-    y, hstate = _ssd_region(x.reshape(bsz, slen, h, pdim), bmat.reshape(bsz, slen, g, n),
-                            cmat.reshape(bsz, slen, g, n), dt, a, p["d_skip"], q=q)
-    y = y.reshape(bsz, slen, d_in).to(xin.dtype)
-    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
-    if return_cache:
-        conv_tail = xbc_pre[:, -(s.d_conv - 1) :, :]
-        return out, (hstate, conv_tail.to(xin.dtype))
-    return out
+    On a mesh whose 'model' axis splits the heads whole, the mixer runs per
+    rank (:func:`_mixer` under ``shard_map_compat``): no activation is
+    gathered but B and C, ``[B, S, 2 * groups * state]``.  Elsewhere it
+    runs op by op, the packed projection gathered whole and the scan in its
+    own region (:func:`_ssd_region`)."""
+    weights = [p[k] for k in _WEIGHTS]
+    mesh = _region_mesh(xin, cfg)
+    if mesh is None:
+        outs = _mixer(xin, *weights, cfg=cfg, return_cache=return_cache)
+    else:
+        _, _, g, _, _, _ = _dims(cfg)
+        b = make_context(mesh).dp_spec(xin.shape[0])
+        heads = ("model",)
+        rows = (b, None, None)
+        bc = (b, None, "model" if g % axis_sizes(mesh)["model"] == 0 else None)
+        outs = list(shard_map_compat(
+            functools.partial(_mixer, cfg=cfg, mesh=mesh, return_cache=return_cache),
+            mesh=mesh, in_specs=(rows, (None, None), (None, None), (None,), heads, heads,
+                                 heads, heads, ("model", None)),
+            out_specs=[rows, (b, "model"), (b, None, "model"), bc, bc][:5 if return_cache else 1],
+        )(xin, *weights))
+        outs[0] = partial_sums(outs[0], "model")  # reduced where next used whole
+    if not return_cache:
+        return outs[0]
+    out, hstate, *tails = outs
+    return out, (hstate, torch.cat(tails, -1).to(xin.dtype))
 
 
 def ssd_naive(p: dict, xin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -47,6 +47,7 @@ __all__ = [
     "mesh_region",
     "over_batch",
     "over_batch_and_heads",
+    "partial_sums",
     "place",
     "placements_for",
     "serve_context",
@@ -361,6 +362,20 @@ def _grad_in_layout(y):
                               shape=y.shape, stride=y.stride())
 
 
+def partial_sums(t, axis: str):
+    """DTensor ``t``, whose pieces over ``axis`` are partial sums of the
+    whole (a row-parallel product run in a region), read as ``Partial``
+    there: DTensor reduces them where they are next used whole, as it
+    reduces a product of DTensors split so, and the gradient comes back
+    whole to each rank."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    i = axis_names(t.device_mesh).index(axis)
+    pl = [Partial() if j == i else p for j, p in enumerate(t.placements)]
+    return DTensor.from_local(t.to_local(), t.device_mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
 def shard_map_compat(f, *, mesh, in_specs, out_specs):
     """The reference's ``shard_map`` as ``local_map``: ``f`` runs on each
     rank's local pieces, laid out by ``in_specs`` (inputs are redistributed
@@ -494,9 +509,11 @@ def split_over_sequence(t) -> bool:
 
 def gather_last(t: torch.Tensor) -> torch.Tensor:
     """``t`` with its last dim whole on every rank (a DTensor's shards of it
-    gathered): for a packed projection (Mamba-2's [z, x, B, C, dt]) whose
-    pieces are sliced out next, which a contiguous split over 'model' cuts
-    across."""
+    gathered): for a packed projection whose pieces are sliced out next,
+    which a contiguous split over 'model' cuts across -- Mamba-2's [z, x,
+    B, C, dt] at decode (``ssm.ssm_decode``), and in training or prefill
+    only where its heads do not split over 'model' whole (``ssm_apply``
+    otherwise projects each rank's own columns)."""
     if not _is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate

@@ -405,3 +405,47 @@ def vocab_worker(rank, world, payload):
         errs["label"] = str(e)
     out["errors"] = errs
     return out
+
+
+def collectives_worker(rank, world, payload):
+    """``parallel.collectives`` over each set of axes of the payload on a
+    2x2x2 ("pod", "data", "model") mesh: each rank's row of ``x`` summed
+    (``all_reduce``), maxed, gathered (``all_gather``) and scaled by its
+    sum of squares over the ranks (``sum_shares``); the results, the
+    gradients of the given cotangents (this rank's block of each) and the
+    collectives each forward and backward ran, by kind, as the counting
+    dispatch mode files them.  Returns every rank's, in rank order."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.op_analysis import analyze_ops
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import axis_names
+
+    mesh = make_debug_mesh(2, 2, 2)
+    names = axis_names(mesh)
+
+    def calls(costs):
+        return {k: v.calls for k, v in costs.breakdown["coll"].items() if k != "-"}
+
+    mine = {}
+    for axes, cases in payload["cases"].items():
+        rest = [a for a in names if a not in axes]
+        fns = {"sum": lambda b: coll.all_reduce(b, mesh, axes),
+               "max": lambda b: coll.all_reduce(b, mesh, axes, op="max"),
+               "gather": lambda b: coll.all_gather(b, mesh, axes),
+               "shares": lambda b: b * coll.sum_shares((b * b).sum(), mesh, axes)}
+        for op, fn in fns.items():
+            x = torch.from_numpy(payload["x"][rank:rank + 1]).requires_grad_(op != "max")
+            y, fwd, _ = analyze_ops(fn, x, breakdown=True)
+            rec = {"y": y.detach().numpy(), "fwd": calls(fwd)}
+            if op != "max":
+                blk = coll.linear_index(mesh, rest if op == "sum" else names)
+                ct = torch.from_numpy(cases[op][blk * y.shape[0]:(blk + 1) * y.shape[0]])
+                (g,), bwd, _ = analyze_ops(torch.autograd.grad, y, x, ct, breakdown=True)
+                rec.update(grad=g.numpy(), bwd=calls(bwd))
+            mine[(axes, op)] = rec
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    return every

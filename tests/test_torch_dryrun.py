@@ -149,10 +149,16 @@ def test_cell_traces_on_fake_pod_mesh():
     assert rec["coll"] > 0  # the pod axis reduces the gradients across pods
 
 
-@pytest.mark.parametrize("arch,kind", CELLS)
+@pytest.mark.parametrize("arch,kind", CELLS + [("qwen2-vl-2b", "train"),
+                                               ("recurrentgemma-2b", "train")])
 def test_one_rank_flops_match_reference(arch, kind):
     """Mesh-free, the port's FLOP count is the reference's trip-count-aware
-    HLO count (``analyze_hlo``) within 5% (observed: equal)."""
+    HLO count (``analyze_hlo``) within 5% (observed: equal).  qwen2-vl's
+    M-RoPE embeds and recurrentgemma's RG-LRU doubling scan and local
+    attention are counted as the reference counts them: their full-size
+    training cells' lower FLOPs on 16x16 are the reference's repeated
+    attention heads (``test_torch_dryrun_faults.py``), not ops the count
+    misses."""
     lowered, _ = lower_cell(jget_smoke(arch), JShape("t", kind, 32, 4), jmake_context(None))
     want = analyze_hlo(lowered.compile().as_text()).flops
     got = _one_rank(arch, kind)["flops_per_device"]

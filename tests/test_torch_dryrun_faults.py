@@ -19,35 +19,68 @@ import sys
 import textwrap
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 LAYERS = 2
 COLL_BOUND = 2.0    # the port's collective bytes a device over the reference's
 FLOPS_BOUND = 1.10  # the port's FLOPs a device over the reference's
 
 
-def _last_json(cmd, timeout):
+def _start(cmd):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                PYTHONWARNINGS="ignore", JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    out = subprocess.run([sys.executable, *cmd], capture_output=True, text=True,
-                         timeout=timeout, env=env)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, *cmd], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
 
 
-@functools.cache
-def port(arch, shape, multi_pod=False):
-    return _last_json([str(ROOT / "scripts" / "cell_breakdown_torch.py"), arch, shape,
-                       "--layers", str(LAYERS)] + (["--multi-pod"] if multi_pod else []), 300)
+def _finish(proc, timeout):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
-@functools.cache
-def reference(arch, shape, multi_pod=False):
-    rec = _last_json([str(ROOT / "scripts" / "dryrun_reference.py"), arch, shape,
-                      "--layers", str(LAYERS)]
-                     + (["--multi-pod"] if multi_pod else []), 300)
-    assert rec["status"] == "ok" and rec["layers"] == LAYERS, rec
+def _last_json(cmd, timeout):
+    return _finish(_start(cmd), timeout)
+
+
+def _port_cmd(arch, shape, multi_pod, layers, world):
+    return ([str(ROOT / "scripts" / "cell_breakdown_torch.py"), arch, shape, "--layers",
+             str(layers)] + (["--multi-pod"] if multi_pod else [])
+            + (["--world", str(world)] if world else []))
+
+
+def _reference_cmd(arch, shape, multi_pod, layers, dots):
+    return ([str(ROOT / "scripts" / "dryrun_reference.py"), arch, shape, "--layers", str(layers)]
+            + (["--multi-pod"] if multi_pod else []) + (["--dots", "1"] if dots else []))
+
+
+def _check_reference(rec, layers):
+    assert rec["status"] == "ok" and rec["layers"] == layers, rec
     return rec
+
+
+@functools.cache
+def port(arch, shape, multi_pod=False, layers=LAYERS, world=0):
+    return _last_json(_port_cmd(arch, shape, multi_pod, layers, world), 300)
+
+
+@functools.cache
+def reference(arch, shape, multi_pod=False, layers=LAYERS, dots=False):
+    return _check_reference(
+        _last_json(_reference_cmd(arch, shape, multi_pod, layers, dots), 300), layers)
+
+
+@functools.cache
+def both(arch, shape, layers=LAYERS, dots=False):
+    """(the port's cell, the reference's), traced side by side."""
+    procs = _start(_port_cmd(arch, shape, False, layers, 0)), \
+        _start(_reference_cmd(arch, shape, False, layers, dots))
+    return _finish(procs[0], 300), _check_reference(_finish(procs[1], 300), layers)
 
 
 def _all_gathers(rec):
@@ -140,3 +173,67 @@ def test_breakdown_sums_equal_the_counts():
     assert any(s.endswith("[bwd]") and "attention.py" in s for s in sites)
     assert any(s.endswith("[recompute]") for s in sites)
     assert any(s.startswith("models/lm.py") and "(_embed_tokens)" in s for s in sites)
+
+
+def test_mamba2_train_moves_what_the_reference_moves():
+    """mamba2-2.7b train_4k on 16x16 (F4): the mixer runs per rank with
+    whole heads (``ssm._mixer``), so no activation of the width of d_in
+    (5120), of the conv channels (5376) or of the packed projection
+    (10576), nor any piece of one over 'model', is gathered: each rank
+    projects its own columns, and the gated norm all-reduces its sum of
+    squares, [16, 4096, 1].  B and C (one group of state 128) are
+    gathered, [16, 4096, 16] a rank: every head reads them, and projecting
+    them on every rank instead would add 240 columns to each rank's 661 of
+    the input projection.  Collective bytes a device within COLL_BOUND and
+    FLOPs within FLOPS_BOUND of the reference's."""
+    got, want = both("mamba2-2.7b", "train_4k")
+    assert got["sums_equal"] and got["layers"] == LAYERS
+    assert got["coll"] <= COLL_BOUND * want["collective_bytes_per_device"], (got["coll"], want)
+    assert got["flops"] <= FLOPS_BOUND * want["flops_per_device"], (got["flops"], want)
+    b_loc, seq, tp = 16, 4096, 16
+    bc = 2 * 128 // tp  # this rank's columns of B and of C
+    gathered = [(per_call, shapes) for per_call, shapes in _all_gathers(got)
+                if any(len(s) >= 3 and s[1] == seq for s in shapes)]
+    assert all(s[:2] == [b_loc, seq] and s[2:] == [bc] for _, shapes in gathered
+               for s in shapes), gathered
+    # B and C whole in bf16, once in each layer's forward and once in its recompute
+    assert sum(c["coll"] for c in got["collective_ops"] if "all_gather" in c["op"]
+               and any(s[:2] == [b_loc, seq] for s in c["shapes"])) \
+        <= 2 * LAYERS * b_loc * seq * 2 * 128 * 2
+    norm = [s for s in got["collective_sites"] if "_gated_norm" in s["site"]]
+    assert norm and sum(s["coll"] for s in norm) <= 8 * 4 * b_loc * seq * 2 * 2 * LAYERS
+
+
+def test_collectives_over_two_axes_are_one_group():
+    """deepseek-v3-671b decode_32k (F5): the full-EP MoE layer's all-reduce
+    over ("data", "model") runs on one flattened group of the 16x16 mesh,
+    so the fake 512-rank group, which holds the mesh in its first 256
+    ranks, reads the 256-rank group's collective bytes.  Four layers: the
+    first three are dense, the fourth routes."""
+    one, two = port("deepseek-v3-671b", "decode_32k", layers=4), \
+        port("deepseek-v3-671b", "decode_32k", layers=4, world=512)
+    assert one["coll"] == two["coll"] and one["collectives"] == two["collectives"], (one, two)
+    assert one["flops"] == two["flops"]
+
+
+@pytest.mark.parametrize("arch,layers,heads", [("qwen2-vl-2b", 2, 3), ("recurrentgemma-2b", 3, 5)])
+def test_low_flop_training_cells_are_the_references_repeated_heads(arch, layers, heads):
+    """qwen2-vl-2b and recurrentgemma-2b train_4k read 0.67x and 0.74x the
+    reference's FLOPs at full depth.  The port's weight products (``mm``)
+    equal the reference's unbatched dots; its attention products (``bmm``)
+    do one query head a device (12 or 10 heads, padded to 16 over
+    'model'), and the reference's batched dots do ``heads`` a device: its
+    GSPMD splits the 12 heads over 4 ranks and the 10 over 2, each group
+    repeated over the rest of 'model'.  recurrentgemma's third layer is its
+    first local-attention block; at 2 layers its FLOPs equal the
+    reference's."""
+    got, want = both(arch, "train_4k", layers=layers, dots=True)
+    assert got["sums_equal"]
+    mm = sum(o["flops"] for o in got["flop_ops"] if o["op"] in ("aten.mm", "aten.addmm"))
+    bmm = sum(o["flops"] for o in got["flop_ops"] if o["op"] == "aten.bmm")
+    assert mm + bmm == got["flops"]
+    plain = sum(d["flops"] for d in want["dots"] if len(d["shapes"][0]) == 2)
+    batched = sum(d["flops"] for d in want["dots"] if len(d["shapes"][0]) == 3)
+    assert plain + batched == pytest.approx(want["flops_per_device"], rel=1e-12)
+    assert mm == pytest.approx(plain, rel=1e-9), (mm, plain)
+    assert heads * bmm == pytest.approx(batched, rel=1e-9), (bmm, batched)

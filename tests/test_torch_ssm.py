@@ -92,6 +92,49 @@ def test_ssm_apply_matches_reference_and_naive():
     _close(got, tssm.ssd_naive(tp, _t(x), tcfg).numpy(), **ORACLE)
 
 
+def _ssd_steps(x, bmat, cmat, dt, a, d_skip, *, q):
+    """``ssm._ssd`` as the token-by-token recurrence, under autograd."""
+    bsz, slen, h, pdim = x.shape
+    rep = h // bmat.shape[2]
+    xf = x.float()
+    bf, cf = (m.float().repeat_interleave(rep, 2) for m in (bmat, cmat))
+    state = torch.zeros(bsz, h, pdim, bmat.shape[3])
+    ys = []
+    for t in range(slen):
+        state = state * torch.exp(dt[:, t] * a)[..., None, None] + \
+            (dt[:, t, :, None] * xf[:, t])[..., None] * bf[:, t, :, None, :]
+        ys.append((state * cf[:, t, :, None, :]).sum(-1) + xf[:, t] * d_skip[None, :, None])
+    return torch.stack(ys, 1), state
+
+
+def test_ssm_gradient_finite_at_full_width(monkeypatch):
+    """mamba2-2.7b's own widths (80 heads, state 128), one chunk of 128
+    tokens: the forward equals the reference's, and the gradient is finite
+    and the step recurrence's (the mixer with its scan run token by token).
+    The reference's is NaN: its
+    ``where(tri, exp(seg), 0)`` overflows in the masked triangle (heads
+    decay at up to 80 a unit of dt), and ``where``'s gradient there is
+    0 * inf; the port takes exp of the causal triangle only."""
+    jcfg = jconfigs.get_config("mamba2-2.7b").with_(dtype="float32")
+    tcfg = tconfigs.get_config("mamba2-2.7b").with_(dtype="float32")
+    jp, tp = _params(jssm.ssm_params, jcfg)
+    x = _x((1, 128, tcfg.d_model), 2)
+    w = _x((1, 128, tcfg.d_model), 3)
+    tx = _t(x).requires_grad_()
+    leaves = [tx] + [v.requires_grad_() for v in tp.values()]
+    got = tssm.ssm_apply(tp, tx, tcfg)
+    _close(got, jssm.ssm_apply(jp, jnp.asarray(x), jcfg))
+    grads = torch.autograd.grad((got * _t(w)).sum(), leaves)
+    assert all(bool(g.isfinite().all()) for g in grads)
+    monkeypatch.setattr(tssm, "_ssd", _ssd_steps)
+    oracle = torch.autograd.grad((tssm.ssm_apply(tp, tx, tcfg) * _t(w)).sum(), leaves)
+    for name, g, o in zip(["x", *tp], grads, oracle):
+        scale = float(o.abs().max())
+        _close(g, o.numpy(), atol=ORACLE["atol"] * scale, rtol=ORACLE["rtol"], err_msg=name)
+    jgrad = jax.grad(lambda p: jnp.sum(jssm.ssm_apply(p, jnp.asarray(x), jcfg) * w))(jp)
+    assert np.isnan(np.asarray(jgrad["in_proj"])).any()
+
+
 def test_ssm_apply_asserts_whole_chunks():
     _, tcfg = _cfgs("mamba2-2.7b")
     _, tp = _params(jssm.ssm_params, _cfgs("mamba2-2.7b")[0])

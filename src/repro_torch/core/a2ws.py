@@ -50,6 +50,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from ..spans import span
 from .deque import AtomicInt64, Task, TaskDeque, slo_key
 from .info_ring import CellBoard, RingInfo
 from .limp import (
@@ -127,6 +128,10 @@ class RunStats:
     net_failed: int = 0  # steal requests lost to drops / partitions
     lease_expired: int = 0  # transfers returned to the victim on expiry
     fare_paid: float = 0.0  # total transport fare slept before loot landed
+    # Clock seconds workers spent in idle waits (an empty deque and no
+    # steal) that began while another live worker's deque held a task
+    # (work the policy left where it was), summed over workers.
+    idle_with_work_s: float = 0.0
 
     @property
     def latencies(self) -> list[float]:
@@ -208,6 +213,7 @@ class _WorkerState:
         "deque", "executed", "runtime_sum", "ran_any", "start_time", "rng",
         "wake", "retiring", "drain_on_retire", "class_t", "nc_cache",
         "limp_state", "slow_mult", "overlay_buf", "nf_rng", "heal_idx",
+        "idle_with_work_s",
     )
 
     def __init__(
@@ -253,6 +259,8 @@ class _WorkerState:
         # after each partition heals, triggering ring resync.
         self.nf_rng: np.random.Generator | None = None
         self.heal_idx = 0
+        # RunStats.idle_with_work_s, owner-written.
+        self.idle_with_work_s = 0.0
 
 
 class WorkerPool:
@@ -928,6 +936,7 @@ class WorkerPool:
             net_failed=self._net_failed,
             lease_expired=self._lease_expired,
             fare_paid=self._fare_paid,
+            idle_with_work_s=sum(w.idle_with_work_s for w in self.workers),
         )
 
     def _worker_loop(self, i: int) -> None:
@@ -953,19 +962,18 @@ class WorkerPool:
                     self._communicate(i)
                 if not self._policy_boundary(i):
                     idle_misses += 1
-                    w.wake.wait(
-                        min(
-                            self.idle_backoff * (2.0 ** min(idle_misses, 30)),
-                            self.idle_backoff_max,
-                        )
-                    )
+                    self._idle_wait(i, w, min(
+                        self.idle_backoff * (2.0 ** min(idle_misses, 30)),
+                        self.idle_backoff_max,
+                    ))
                 continue
             idle_misses = 0
             if self.info is not None:
                 self._update_info(i)  # line 11
             start = self.clock()
             try:
-                self.task_fn(i, task)  # line 12
+                with span("a2ws.task"):
+                    self.task_fn(i, task)  # line 12
             except BaseException as e:  # noqa: BLE001 — fault tolerance
                 # Worker failure: return the task to the deque so survivors
                 # can steal it, raise the tombstone, publish, and die.
@@ -990,7 +998,8 @@ class WorkerPool:
                 return
             mult = self.policy.task_multiplier(i)
             if mult > 1.0:
-                _busy_wait((self.clock() - start) * (mult - 1.0), self.clock)
+                with span("a2ws.slow"):
+                    _busy_wait((self.clock() - start) * (mult - 1.0), self.clock)
             slow = self._slow_factor(i, w, start)
             if slow > 1.0:
                 # Degraded-but-alive fault injection: stretch the task's
@@ -998,7 +1007,8 @@ class WorkerPool:
                 # paced (not a busy wait) — a throttled or IO-stalled node
                 # yields its cycles, and on a CI box a spinning straggler
                 # would starve the very threads that should out-run it.
-                _sleep_stall((self.clock() - start) * (slow - 1.0), self.clock)
+                with span("a2ws.slow"):
+                    _sleep_stall((self.clock() - start) * (slow - 1.0), self.clock)
             end = self.clock()
             w.executed += 1
             w.runtime_sum += end - start
@@ -1019,6 +1029,20 @@ class WorkerPool:
             if self.info is not None:
                 self._update_info(i)
                 self._communicate(i)  # line 13
+
+    def _idle_wait(self, i: int, w: _WorkerState, timeout: float) -> None:
+        """Worker ``i``'s idle wait (empty deque, no steal), counted into
+        ``idle_with_work_s`` when another live worker's deque held a task as
+        the wait began."""
+        t0 = self.clock()
+        with_work = any(
+            j != i and not self.dead[j] and len(v.deque) > 0
+            for j, v in enumerate(self.workers)
+        )
+        with span("a2ws.idle"):
+            w.wake.wait(timeout)
+        if with_work:
+            w.idle_with_work_s += self.clock() - t0
 
     # ------------------------------------------------------- straggler plane
     def set_worker_slowdown(self, worker: int, factor: float) -> None:
@@ -1461,6 +1485,13 @@ class WorkerPool:
         plan = self.policy.on_boundary(view)
         if plan is None:
             return False
+        with span("a2ws.steal"):
+            return self._execute_plan(i, view, plan)
+
+    def _execute_plan(self, i: int, view: PolicyView, plan) -> bool:
+        """Execute worker ``i``'s steal ``plan``: the claim, any fares, the
+        push onto its deque and the reconciliation of its beliefs; True when
+        loot landed."""
         # Plans name GLOBAL victims (hierarchy policies translate before
         # returning).  Under a scoped view, resolve the local row for the
         # reconciliation below; an inter-cell victim has none — its board

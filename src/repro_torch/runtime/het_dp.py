@@ -26,6 +26,11 @@ cross-pod reduction.
 Straggler mitigation and elasticity fall out of the scheduler: a slowed
 worker's queue is drained by thieves (per-step), and workers can be added or
 removed between steps (the task partition is rebuilt each step).
+
+Spans (``repro_torch.spans``): a step's ``hetdp.streams``, ``hetdp.pool``,
+``hetdp.combine`` and ``hetdp.update`` on the caller's thread; each task's
+``hetdp.grad``, ``hetdp.accumulate``, ``hetdp.sync`` and ``hetdp.pace`` on
+its worker's thread.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from repro_torch.autodiff import tree_leaves, tree_map, value_and_grad
 from repro_torch.core.a2ws import RunStats, WorkerPool
 from repro_torch.core.policy import SchedPolicy
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.spans import span
 from .compression import ErrorFeedback
 
 __all__ = ["WorkerSpec", "HetDPTrainer", "WorkerFailed"]
@@ -97,9 +103,10 @@ class HetDPTrainer:
         """One optimizer step over T microbatch tasks (dicts of tensors on
         the parameters' device)."""
         combined, metrics = self.gradient(microbatches)
-        self.params, self.opt_state, om = adamw_update(
-            combined, self.opt_state, self.params, self.opt_cfg, lr_scale
-        )
+        with span("hetdp.update"):
+            self.params, self.opt_state, om = adamw_update(
+                combined, self.opt_state, self.params, self.opt_cfg, lr_scale
+            )
         del combined
         self.step_count += 1
         return dict(metrics, grad_norm=float(om["grad_norm"]))
@@ -117,50 +124,53 @@ class HetDPTrainer:
         params = self.params
         step_idx = self.step_count
         dev = tree_leaves(params)[0].device
-        streams = None
-        if dev.type == "cuda":
-            # made on this thread, each after the default stream's work so far
-            # (the parameters' last update, the microbatches' copies, and the
-            # last step's reads of memory the allocator may hand out again)
-            streams = [torch.cuda.Stream(dev) for _ in range(nw)]
-            for s in streams:
-                s.wait_stream(torch.cuda.current_stream(dev))
-
-        def run(wid: int, mb: dict):
-            (loss, _), g = self._grad_fn(params, mb)
-            with locks[wid]:
-                if grads[wid] is None:  # the accumulator: memory of its own
-                    grads[wid] = tree_map(torch.Tensor.contiguous, g)
-                else:  # in the parameters' dtype, as the reference's host sum
-                    tree_map(torch.Tensor.add_, grads[wid], g)
-            return float(loss)
+        streams = [None] * nw
+        with span("hetdp.streams"):
+            if dev.type == "cuda":
+                # made on this thread, each after the default stream's work
+                # so far (the parameters' last update, the microbatches'
+                # copies, and the last step's reads of memory the allocator
+                # may hand out again)
+                streams = [torch.cuda.Stream(dev) for _ in range(nw)]
+                for s in streams:
+                    s.wait_stream(torch.cuda.current_stream(dev))
 
         def task_fn(wid: int, task_idx):
             spec = self.workers[wid]
             if spec.fail_at_step is not None and step_idx >= spec.fail_at_step:
                 raise WorkerFailed(wid)
             mb = microbatches[int(task_idx)]
-            if streams is None:
-                loss = run(wid, mb)
-            else:
-                with torch.cuda.stream(streams[wid]):
-                    loss = run(wid, mb)
-                    streams[wid].synchronize()
+            stream = streams[wid]
+            with torch.cuda.stream(stream):  # a no-op for the CPU's None
+                with span("hetdp.grad"):
+                    (loss, _), g = self._grad_fn(params, mb)
+                with span("hetdp.accumulate"), locks[wid]:
+                    if grads[wid] is None:  # the accumulator: memory of its own
+                        grads[wid] = tree_map(torch.Tensor.contiguous, g)
+                    else:  # in the parameters' dtype, as the reference's host sum
+                        tree_map(torch.Tensor.add_, grads[wid], g)
+                del g  # the microbatch's gradient, freed before the waits
+                with span("hetdp.sync"):  # the loss's read waits first
+                    loss = float(loss)
+                    if stream is not None:
+                        stream.synchronize()
             if spec.slow_factor > 1.0 or self.base_task_time:
-                time.sleep(self.base_task_time * max(spec.slow_factor, 1.0))
+                with span("hetdp.pace"):
+                    time.sleep(self.base_task_time * max(spec.slow_factor, 1.0))
             with locks[wid]:
                 losses[wid] += loss
                 counts[wid] += 1
 
-        rt = WorkerPool(
-            list(range(len(microbatches))),
-            nw,
-            task_fn,
-            policy=self.policy,
-            radius=self.radius,
-            seed=self.step_count,
-        )
-        stats = rt.run()
+        with span("hetdp.pool"):
+            rt = WorkerPool(
+                list(range(len(microbatches))),
+                nw,
+                task_fn,
+                policy=self.policy,
+                radius=self.radius,
+                seed=self.step_count,
+            )
+            stats = rt.run()
         self.history.append(stats)
 
         # ----------------------------------------------- combine + update
@@ -170,24 +180,25 @@ class HetDPTrainer:
             # Only possible if every worker died: surviving workers steal the
             # re-queued tasks of dead ones, so partial failure still finishes.
             raise WorkerFailed(failed[0] if failed else -1)
-        combined = None
-        for wid in range(nw):
-            g, grads[wid] = grads[wid], None  # each accumulator freed once added
-            if g is None:
-                continue
-            if self.compress:
-                packed = self._ef[wid].compress(g)
-                g = ErrorFeedback.decompress(packed)
-            if combined is None:
-                combined = g
-            else:
-                tree_map(torch.Tensor.add_, combined, g)
-            del g
-        # the mean, as the reference divides its host sums: a bf16 array over
-        # an int is f32 there, so a bf16 sum becomes an f32 gradient
-        n = torch.tensor(total, dtype=torch.float32, device=dev)
-        combined = tree_map(
-            lambda x: (x.float() if x.dtype == torch.bfloat16 else x).div_(n), combined)
+        with span("hetdp.combine"):
+            combined = None
+            for wid in range(nw):
+                g, grads[wid] = grads[wid], None  # each accumulator freed once added
+                if g is None:
+                    continue
+                if self.compress:
+                    packed = self._ef[wid].compress(g)
+                    g = ErrorFeedback.decompress(packed)
+                if combined is None:
+                    combined = g
+                else:
+                    tree_map(torch.Tensor.add_, combined, g)
+                del g
+            # the mean, as the reference divides its host sums: a bf16 array
+            # over an int is f32 there, so a bf16 sum becomes an f32 gradient
+            n = torch.tensor(total, dtype=torch.float32, device=dev)
+            combined = tree_map(
+                lambda x: (x.float() if x.dtype == torch.bfloat16 else x).div_(n), combined)
         return combined, {
             "loss": sum(losses) / max(total, 1),
             "tasks_per_worker": counts,

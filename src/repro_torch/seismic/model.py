@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fd3d import fd3d_step
+from repro_torch.spans import span
 
 __all__ = [
     "Shot", "SeismicModel", "ricker", "run_shot", "make_demo_model",
@@ -106,27 +107,33 @@ def run_shot(
     the next ``u_prev`` is ``u * mask``; receivers are read from ``u_next``.
     Both mask multiplies are in place: ``u_next`` is a fresh output of the
     step, and ``u`` is not read again once it has become the next ``u_prev``.
+
+    Spans (``repro_torch.spans``): ``shot.setup`` around the shot's set-up,
+    ``shot.steps`` around the launch loop (none per step: a host span
+    around asynchronous launches would time the enqueue, not the step).
     """
     vel = model.velocity
     dev = vel.device
     nz, ny, nx = vel.shape
-    c2dt2 = (vel * model.dt) ** 2
-    mask = _sponge_mask((nz, ny, nx), model.sponge, model.sponge_decay, dev)
-    wavelet = ricker(model.f_peak, model.dt, nt, dev)
-    sz, sy, sx = (int(v) for v in src)
-    src_amp = wavelet * c2dt2[sz, sy, sx]
-    rec = torch.as_tensor(np.asarray(receivers, dtype=np.int64), device=dev)
-    rec_flat = (rec[:, 0] * ny + rec[:, 1]) * nx + rec[:, 2]
-    u = torch.zeros_like(vel)
-    u_prev = torch.zeros_like(vel)
-    seis = torch.empty((nt, rec.shape[0]), dtype=vel.dtype, device=dev)
-    for it in range(nt):
-        u_next = fd3d_step(u, u_prev, c2dt2, dx=model.dx, backend=backend)
-        u_next[sz, sy, sx].add_(src_amp[it])
-        u_next.mul_(mask)
-        u_prev = u.mul_(mask)
-        seis[it] = u_next.view(-1)[rec_flat]
-        u = u_next
+    with span("shot.setup"):
+        c2dt2 = (vel * model.dt) ** 2
+        mask = _sponge_mask((nz, ny, nx), model.sponge, model.sponge_decay, dev)
+        wavelet = ricker(model.f_peak, model.dt, nt, dev)
+        sz, sy, sx = (int(v) for v in src)
+        src_amp = wavelet * c2dt2[sz, sy, sx]
+        rec = torch.as_tensor(np.asarray(receivers, dtype=np.int64), device=dev)
+        rec_flat = (rec[:, 0] * ny + rec[:, 1]) * nx + rec[:, 2]
+        u = torch.zeros_like(vel)
+        u_prev = torch.zeros_like(vel)
+        seis = torch.empty((nt, rec.shape[0]), dtype=vel.dtype, device=dev)
+    with span("shot.steps"):
+        for it in range(nt):
+            u_next = fd3d_step(u, u_prev, c2dt2, dx=model.dx, backend=backend)
+            u_next[sz, sy, sx].add_(src_amp[it])
+            u_next.mul_(mask)
+            u_prev = u.mul_(mask)
+            seis[it] = u_next.view(-1)[rec_flat]
+            u = u_next
     return seis
 
 

@@ -15,6 +15,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.spans import span
+
 from .model import SeismicModel, Shot, run_shot
 
 __all__ = ["make_shot_task"]
@@ -36,18 +38,17 @@ def make_shot_task(
     dev = model.velocity.device
     streams = (
         [torch.cuda.Stream(dev) for _ in range(num_workers)]
-        if dev.type == "cuda" else None
+        if dev.type == "cuda" else [None] * num_workers
     )
 
     def task_fn(wid: int, shot: Shot) -> None:
-        if streams is None:
-            seis = run_shot(model, shot.src, shot.rec_array(), nt, backend)
-            results[shot.src] = seis.numpy()
-            return
         stream = streams[wid]
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream):  # a no-op for the CPU's None
             seis = run_shot(model, shot.src, shot.rec_array(), nt, backend)
-            stream.synchronize()
-            results[shot.src] = seis.cpu().numpy()
+            with span("shot.sync"):
+                if stream is not None:
+                    stream.synchronize()
+            with span("shot.fetch"):
+                results[shot.src] = seis.cpu().numpy()
 
     return task_fn

@@ -498,17 +498,20 @@ def run() -> dict:
     torch.cuda.reset_peak_memory_stats()
     rt = A2WSRuntime(shots, len(SLOWDOWN), task_fn, seed=0, slowdown=slowdown)
     fd3d_kernel.launches = 0
+    fd3d_kernel.epilogue_launches = 0
     t0 = time.perf_counter()
     stats = rt.run()
     wall = time.perf_counter() - t0
     launches = fd3d_kernel.launches
+    epilogue_launches = fd3d_kernel.epilogue_launches
     peak_mem = torch.cuda.max_memory_allocated()
     print(f"[main] A2WS {NUM_SHOTS} shots x {NT} steps of {shape}, "
           f"{len(SLOWDOWN)} workers, slowdowns {SLOWDOWN}: makespan "
           f"{stats.makespan:.3f} s (wall {wall:.3f} s), tasks/worker "
           f"{stats.per_worker_tasks}, steals {len(stats.steals)}, "
           f"max_memory_allocated {peak_mem / 2**30:.2f} GiB")
-    print(f"[main] fd3d launches {launches} (expected {NUM_SHOTS * NT})")
+    print(f"[main] fd3d launches {launches}, {epilogue_launches} with the step's epilogue "
+          f"(expected {NUM_SHOTS * NT} each)")
     need(not rt.errors, f"worker errors: {rt.errors}")
     need(sum(stats.per_worker_tasks) == NUM_SHOTS,
          f"{sum(stats.per_worker_tasks)} tasks ran, expected {NUM_SHOTS}")
@@ -517,8 +520,9 @@ def run() -> dict:
         need(seis.shape == (NT, len(shots[0].receivers)), f"seismogram {key} shape {seis.shape}")
         need(bool(np.isfinite(seis).all()) and bool(np.abs(seis).max() > 0),
              f"seismogram {key} not finite and non-zero")
-    need(launches == NUM_SHOTS * NT,
-         f"fd3d launched {launches} times on the main path, expected {NUM_SHOTS * NT}")
+    need(launches == epilogue_launches == NUM_SHOTS * NT,
+         f"fd3d launched {launches} times on the main path ({epilogue_launches} with the "
+         f"epilogue), expected {NUM_SHOTS * NT}")
 
     # 6. one shot alone, timed, and its parity at full width ---------------
     shot = shots[0]

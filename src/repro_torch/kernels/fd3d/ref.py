@@ -9,6 +9,10 @@ the CUDA kernel in ``fd3d.py`` is held against, on the CPU in the tests and
 on the card in ``chip_smoke.py``; it runs every step on a CPU tensor.  The
 summation order is the JAX reference's (``repro.kernels.fd3d.ref``): centre
 term, then axis outer and k inner, then ``/ dx**2``.
+
+``fd3d_step_tapered`` is the plain counterpart of the kernel's launch with
+the shot step's epilogue: the step, the source add and the sponge taper as
+separate PyTorch ops, which that launch matches bit for bit.
 """
 
 from __future__ import annotations
@@ -41,3 +45,28 @@ def fd3d_step(
 ) -> torch.Tensor:
     """One leapfrog time step of Eq. 12 (without the source injection)."""
     return 2.0 * u - u_prev + c2dt2 * laplacian(u, dx)
+
+
+def taper_mask(mz: torch.Tensor, my: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """The 3-D taper of three 1-D ramps, formed as ``(mz * my) * mx`` in the
+    ramps' dtype: the product, and rounding, that the kernel forms a cell."""
+    return mz[:, None, None] * my[None, :, None] * mx[None, None, :]
+
+
+def fd3d_step_tapered(
+    u: torch.Tensor,
+    u_prev: torch.Tensor,
+    c2dt2: torch.Tensor,
+    dx: float,
+    taper: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    src: tuple[int, int, int],
+    amp: torch.Tensor,
+) -> torch.Tensor:
+    """One step of a shot's carry: the step from ``u`` and ``u_prev * mask``
+    (rounded to ``u_prev``'s dtype, as an in-place multiply stores it), then
+    ``amp`` added at ``src``, then the result times the mask, each in place
+    in the field's dtype.  ``u_prev`` is not written."""
+    mask = taper_mask(*taper)
+    u_next = fd3d_step(u, (u_prev * mask).to(u_prev.dtype), c2dt2, dx)
+    u_next[tuple(src)].add_(amp)
+    return u_next.mul_(mask)

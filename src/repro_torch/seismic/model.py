@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fd3d import fd3d_step
+from repro_torch.kernels.fd3d.ref import taper_mask
 from repro_torch.spans import span
 
 __all__ = [
@@ -68,16 +69,17 @@ class SeismicModel:
         return self.dt <= 0.5 * self.dx / (vmax * np.sqrt(3.0) / 2.0)
 
 
-def _sponge_mask(
+def _sponge_ramps(
     shape: tuple[int, int, int],
     width: int,
     decay: float,
     device: str | torch.device = "cuda",
-) -> torch.Tensor:
-    """Exponential absorbing taper near five faces (z=0 is the free surface,
-    where sources and receivers live), float32."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sponge's 1-D ramps ``(mz, my, mx)``, float32: an exponential
+    absorbing taper near five faces (z=0 is the free surface, where sources
+    and receivers live).  The 3-D taper is ``(mz * my) * mx``."""
     dev = resolve_device(device)
-    masks = []
+    ramps = []
     for axis, n in enumerate(shape):
         idx = torch.arange(n, device=dev)
         if axis == 0:  # free surface at z=0: only absorb at the bottom
@@ -86,9 +88,18 @@ def _sponge_mask(
             edge = torch.minimum(idx, n - 1 - idx)
         sq = ((width - edge) ** 2).to(torch.float32)
         ramp = torch.where(edge < width, torch.exp(-decay * sq), 1.0)
-        masks.append(ramp.to(torch.float32))
-    mz, my, mx = masks
-    return mz[:, None, None] * my[None, :, None] * mx[None, None, :]
+        ramps.append(ramp.to(torch.float32))
+    return tuple(ramps)
+
+
+def _sponge_mask(
+    shape: tuple[int, int, int],
+    width: int,
+    decay: float,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """The 3-D sponge taper, float32: the product of ``_sponge_ramps``."""
+    return taper_mask(*_sponge_ramps(shape, width, decay, device))
 
 
 def run_shot(
@@ -105,8 +116,13 @@ def run_shot(
     The carry is the JAX loop's exactly: the source is added after the step,
     scaled by ``c2dt2`` at the source cell; the mask multiplies ``u_next``;
     the next ``u_prev`` is ``u * mask``; receivers are read from ``u_next``.
-    Both mask multiplies are in place: ``u_next`` is a fresh output of the
-    step, and ``u`` is not read again once it has become the next ``u_prev``.
+    Each step is one ``fd3d_step`` with the sponge's three 1-D ramps, the
+    source cell and its amplitude: on the card one launch that multiplies
+    ``u_prev`` by the mask as it loads it, adds the source, multiplies by
+    the mask and stores, rounding to the field's dtype after each in that
+    order, so the seismogram is the separate ops' bit for bit.  ``u_prev``
+    is therefore kept as the previous ``u``, before its second taper.  No
+    3-D mask is made.
 
     Spans (``repro_torch.spans``): ``shot.setup`` around the shot's set-up,
     ``shot.steps`` around the launch loop (none per step: a host span
@@ -117,7 +133,7 @@ def run_shot(
     nz, ny, nx = vel.shape
     with span("shot.setup"):
         c2dt2 = (vel * model.dt) ** 2
-        mask = _sponge_mask((nz, ny, nx), model.sponge, model.sponge_decay, dev)
+        taper = _sponge_ramps((nz, ny, nx), model.sponge, model.sponge_decay, dev)
         wavelet = ricker(model.f_peak, model.dt, nt, dev)
         sz, sy, sx = (int(v) for v in src)
         src_amp = wavelet * c2dt2[sz, sy, sx]
@@ -128,12 +144,10 @@ def run_shot(
         seis = torch.empty((nt, rec.shape[0]), dtype=vel.dtype, device=dev)
     with span("shot.steps"):
         for it in range(nt):
-            u_next = fd3d_step(u, u_prev, c2dt2, dx=model.dx, backend=backend)
-            u_next[sz, sy, sx].add_(src_amp[it])
-            u_next.mul_(mask)
-            u_prev = u.mul_(mask)
+            u_next = fd3d_step(u, u_prev, c2dt2, dx=model.dx, taper=taper,
+                               src=(sz, sy, sx), amp=src_amp[it], backend=backend)
             seis[it] = u_next.view(-1)[rec_flat]
-            u = u_next
+            u_prev, u = u, u_next
     return seis
 
 

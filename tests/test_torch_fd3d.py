@@ -123,3 +123,45 @@ def test_kernel_wrapper_rejects_bad_inputs_before_launch(case):
     with pytest.raises(ValueError):
         tkernel.fd3d_cuda(*_bad_inputs()[case], dx=1.0)
     assert tkernel.launches == before
+
+
+def _bad_epilogues():
+    u, up, c2 = (torch.from_numpy(a) for a in _fields((4, 5, 6)))
+    ramps = tuple(torch.ones(n) for n in (4, 5, 6))
+    amp = torch.tensor([0.5])[0]
+    ok = {"taper": ramps, "src": (1, 2, 3), "amp": amp}
+    cases = {
+        "taper alone": {"taper": ramps},
+        "no amp": {"taper": ramps, "src": (1, 2, 3)},
+        "two ramps": {**ok, "taper": ramps[:2]},
+        "ramp length": {**ok, "taper": (ramps[0], ramps[1], torch.ones(5))},
+        "ramp rank": {**ok, "taper": (ramps[0].view(4, 1), ramps[1], ramps[2])},
+        "ramp dtype": {**ok, "taper": (ramps[0].double(), ramps[1], ramps[2])},
+        "ramp device": {**ok, "taper": (torch.ones(4, device="meta"), ramps[1], ramps[2])},
+        "source outside": {**ok, "src": (4, 0, 0)},
+        "negative source": {**ok, "src": (0, -1, 0)},
+        "amp dtype": {**ok, "amp": amp.double()},
+        "amp size": {**ok, "amp": torch.ones(2)},
+    }
+    return (u, up, c2), cases
+
+
+@pytest.mark.parametrize("case", list(_bad_epilogues()[1]))
+def test_kernel_wrapper_rejects_bad_epilogue_before_launch(case):
+    """The epilogue's operands are checked before the device: a wrong ramp,
+    source or amplitude raises on the CPU too, and nothing launches."""
+    fields, cases = _bad_epilogues()
+    before = tkernel.launches, tkernel.epilogue_launches
+    with pytest.raises(ValueError):
+        tkernel.fd3d_cuda(*fields, dx=1.0, **cases[case])
+    assert (tkernel.launches, tkernel.epilogue_launches) == before
+
+
+@pytest.mark.parametrize("backend", [None, "ref"])
+@pytest.mark.parametrize("case", list(_bad_epilogues()[1]))
+def test_ops_plain_path_rejects_bad_epilogue(case, backend):
+    """The plain path takes the epilogue's operands under the kernel's
+    rules: what the kernel refuses, the CPU refuses too."""
+    fields, cases = _bad_epilogues()
+    with pytest.raises(ValueError):
+        fd3d_step(*fields, dx=1.0, backend=backend, **cases[case])

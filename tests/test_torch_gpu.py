@@ -36,9 +36,11 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.runtime.het_dp import HetDPTrainer, WorkerSpec
 from repro_torch.train.step import make_train_step
 from repro_torch.serve import Replica, ServePool
+from _unfused import source_cells, unfused_shot, unfused_step
 from repro_torch.kernels.fd3d import fd3d as tkernel
 from repro_torch.kernels.fd3d import fd3d_step, ref
 from repro_torch.seismic import make_demo_model, make_shot_grid, run_shot
+from repro_torch.seismic import model as seismic_model
 from repro_torch.seismic.tasks import make_shot_task
 
 pytestmark = pytest.mark.gpu
@@ -77,13 +79,35 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("where", ["interior", "sponge", "corner"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_step_matches_unfused(cuda, shape, dtype, where):
+    """One launch with the epilogue equals the plain kernel's step from
+    ``u_prev * mask``, the source ``add_`` and ``mul_(mask)``, bit for bit
+    in both dtypes: the same roundings in the same order."""
+    u, up, c2 = _fields(shape, dtype, cuda)
+    ramps = seismic_model._sponge_ramps(shape, 3, 0.05, cuda)
+    amps = torch.tensor([0.0, 0.37, -1.25], device=cuda)
+    src = source_cells(shape)[where]
+    before = tkernel.launches, tkernel.epilogue_launches
+    got = fd3d_step(u, up, c2, dx=10.0, taper=ramps, src=src, amp=amps[1])
+    torch.cuda.synchronize()
+    assert (tkernel.launches, tkernel.epilogue_launches) == (before[0] + 1, before[1] + 1)
+    want = unfused_step(u, up, c2, 10.0, ref.taper_mask(*ramps), src, amps[1])
+    assert got.dtype == dtype and got.shape == u.shape
+    assert torch.equal(got, want)
+
+
 def test_run_shot_kernel_matches_plain(cuda):
     m = make_demo_model(n=40, device=cuda)
     shot = make_shot_grid(m, 1)[0]
-    before = tkernel.launches
+    before = tkernel.launches, tkernel.epilogue_launches
     got = run_shot(m, shot.src, shot.rec_array(), nt=200)
     torch.cuda.synchronize()
-    assert tkernel.launches == before + 200
+    assert tkernel.launches == before[0] + 200
+    assert tkernel.epilogue_launches == before[1] + 200
+    assert torch.equal(got, unfused_shot(m, shot.src, shot.rec_array(), nt=200))
     want = run_shot(m, shot.src, shot.rec_array(), nt=200, backend="ref")
     peak = want.abs().max().item()
     assert peak > 0

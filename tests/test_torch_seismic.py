@@ -14,7 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from _unfused import source_cells, unfused_shot, unfused_step
 from repro.seismic import model as jm
+from repro_torch.kernels.fd3d import fd3d as tkernel
+from repro_torch.kernels.fd3d import fd3d_step
+from repro_torch.kernels.fd3d.ref import taper_mask
 from repro_torch.seismic import (
     SeismicModel,
     make_demo_model,
@@ -56,6 +60,68 @@ def test_sponge_mask_matches_jax(shape, width, decay):
     assert got.dtype == torch.float32
     want = np.asarray(jm._sponge_mask(shape, width, decay))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape,width,decay", [
+    ((24, 24, 24), 8, 0.012), ((13, 20, 9), 4, 0.05), ((6, 5, 7), 4, 0.03),
+    ((1, 3, 2), 8, 0.012),
+])
+def test_sponge_ramps_multiply_to_the_mask(shape, width, decay):
+    """The three ramps, multiplied cell by cell as the kernel does,
+    ``(mz[z] * my[y]) * mx[x]`` in float32, give ``_sponge_mask`` bit for
+    bit, also where the sponge is wider than half an axis; that mask is
+    still JAX's."""
+    ramps = tm._sponge_ramps(shape, width, decay, device="cpu")
+    assert [tuple(r.shape) for r in ramps] == [(n,) for n in shape]
+    assert all(r.dtype == torch.float32 for r in ramps)
+    mz, my, mx = (r.numpy() for r in ramps)
+    cellwise = (mz[:, None, None] * my[None, :, None]) * mx[None, None, :]
+    assert cellwise.dtype == np.float32
+    mask = tm._sponge_mask(shape, width, decay, device="cpu")
+    np.testing.assert_array_equal(mask.numpy(), cellwise)
+    assert torch.equal(taper_mask(*ramps), mask)
+    want = np.asarray(jm._sponge_mask(shape, width, decay))
+    np.testing.assert_allclose(mask.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("where", ["interior", "sponge", "corner"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 16, 16), (13, 17, 29), (5, 1, 3), (1, 1, 1)])
+def test_fd3d_step_with_epilogue_on_cpu_is_the_sequence(shape, dtype, where):
+    """``fd3d_step(..., taper=, src=, amp=)`` on the CPU equals the step,
+    the source ``add_`` and the mask multiplies run apart, bit for bit, and
+    launches nothing; neither input field is written."""
+    rng = np.random.default_rng(sum(shape))
+    u, u_prev = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+                 for _ in range(2))
+    c2dt2 = torch.full(shape, 0.1, dtype=dtype)
+    ramps = tm._sponge_ramps(shape, 3, 0.05, device="cpu")
+    amps = torch.tensor([0.0, 0.37, -1.25])
+    src = source_cells(shape)[where]
+    keep = u.clone(), u_prev.clone()
+    before = tkernel.launches, tkernel.epilogue_launches
+    got = fd3d_step(u, u_prev, c2dt2, dx=10.0, taper=ramps, src=src, amp=amps[1])
+    assert (tkernel.launches, tkernel.epilogue_launches) == before
+    assert torch.equal(u, keep[0]) and torch.equal(u_prev, keep[1])
+    want = unfused_step(u, u_prev, c2dt2, 10.0, taper_mask(*ramps), src, amps[1])
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(fd3d_step(u, u_prev, c2dt2, dx=10.0, taper=ramps, src=src,
+                                 amp=amps[1], backend="ref"), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_run_shot_is_the_unfused_loop(dtype):
+    """n=20, nt=60: ``run_shot``, each step one ``fd3d_step`` with the
+    sponge's ramps and the source, gives the seismogram of the loop that
+    added the source and multiplied by the 3-D mask apart, bit for bit."""
+    demo = make_demo_model(n=20, device="cpu")
+    m = SeismicModel(velocity=demo.velocity.to(dtype), dx=demo.dx, dt=demo.dt)
+    shot = make_shot_grid(m, 1)[0]
+    got = run_shot(m, shot.src, shot.rec_array(), nt=60)
+    want = unfused_shot(m, shot.src, shot.rec_array(), nt=60)
+    assert got.dtype == dtype and float(want.abs().max()) > 1.0
+    assert torch.equal(got, want)
 
 
 def test_demo_model_and_shot_grid_match_jax():

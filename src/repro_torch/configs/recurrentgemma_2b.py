@@ -24,6 +24,7 @@ CONFIG = ModelConfig(
     logits_softcap=30.0,
     tie_embeddings=True,
     max_seq=524_288,
+    embed_scale=2560**0.5,  # Griffin scales the embedding by sqrt(d_model)
 )
 
 SMOKE = ModelConfig(
@@ -41,5 +42,6 @@ SMOKE = ModelConfig(
     rglru=RGLRUConfig(lru_width=64, d_conv=4, window=32),
     logits_softcap=30.0,
     max_seq=256,
+    embed_scale=64**0.5,
     remat="none",
 )

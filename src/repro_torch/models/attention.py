@@ -151,9 +151,11 @@ def gqa_attend(
     chunk: int = 1024,
     return_cache: bool = False,
 ):
-    """Full/windowed causal self-attention for train & prefill."""
+    """Full/windowed causal self-attention for train & prefill, at the
+    softmax scale ``cfg.attn_scale`` (0: 1/sqrt(head_dim))."""
     q, k, v = _qkv(p, x, cfg, rope_fn)
-    o = flash_attention(q, k, v, causal=True, window=window, chunk=chunk)
+    o = flash_attention(q, k, v, causal=True, window=window, chunk=chunk,
+                        scale=cfg.attn_scale or None)
     y = dense(merge_heads(o), p["wo"])
     if return_cache:
         return y, (k, v)
@@ -200,15 +202,16 @@ def gqa_decode(
         valid = (abs_pos >= 0) & (abs_pos > pos - window)
     else:
         valid = kpos <= pos
+    scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
     if split_over_sequence(ck):
-        o = _decode_attend_split(q, ck, cv, valid)
+        o = _decode_attend_split(q, ck, cv, valid, scale)
     else:
-        o = over_batch_and_heads(_decode_attend, q, ck, cv, valid=valid)
+        o = over_batch_and_heads(_decode_attend, q, ck, cv, valid=valid, scale=scale)
     y = dense(o.reshape(b, 1, h * hd).to(x.dtype), p["wo"])
     return y, (ck, cv)
 
 
-def _decode_attend_split(q, ck, cv, valid):
+def _decode_attend_split(q, ck, cv, valid, scale):
     """:func:`_decode_attend` against a cache whose slots are split over
     mesh axes (the layout ``cache_pspecs`` gives when the kv heads do not
     divide 'model'): each rank attends its own slots with every head, and
@@ -227,7 +230,7 @@ def _decode_attend_split(q, ck, cv, valid):
         first = coll.linear_index(mesh, split) * s_loc
         b, _, h, hd = q_l.shape
         hkv = k_l.shape[2]
-        qf = (q_l * (1.0 / math.sqrt(hd))).to(k_l.dtype).reshape(b, 1, hkv, h // hkv, hd)
+        qf = (q_l * scale).to(k_l.dtype).reshape(b, 1, hkv, h // hkv, hd)
         s = torch.einsum("bqkgd,bckd->bqkgc", qf.float(), k_l.float())
         s = s.masked_fill(~valid[first:first + s_loc][None, None, None, None, :], _NEG)
         m = coll.all_reduce(s.amax(-1), mesh, split, op="max")
@@ -241,13 +244,14 @@ def _decode_attend_split(q, ck, cv, valid):
                             out_specs=q_spec)(q, ck, cv)
 
 
-def _decode_attend(q, ck, cv, *, valid):
+def _decode_attend(q, ck, cv, *, valid, scale):
     """One query row ``q`` [B, 1, H, hd] against the cache's K/V [B, S,
-    Hkv, hd] at the ``valid`` slots; f32 [B, 1, H, hd]."""
+    Hkv, hd] at the ``valid`` slots, scores scaled by ``scale``; f32 [B, 1,
+    H, hd]."""
     b, _, h, hd = q.shape
     hkv = ck.shape[2]
     g = h // hkv
-    qf = (q * (1.0 / math.sqrt(hd))).to(ck.dtype).reshape(b, 1, hkv, g, hd)
+    qf = (q * scale).to(ck.dtype).reshape(b, 1, hkv, g, hd)
     s = torch.einsum("bqkgd,bckd->bqkgc", qf.float(), ck.float())
     s = s.masked_fill(~valid[None, None, None, None, :], _NEG)
     a = torch.softmax(s, dim=-1)

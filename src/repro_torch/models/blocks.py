@@ -7,6 +7,7 @@ Block kinds
   attn_dense  attention (GQA or MLA) + dense MLP      MoE models, first-k layers
   attn_moe    attention (GQA or MLA) + MoE            MoE models
   ssm         Mamba-2 SSD mixer (no MLP)              mamba2
+  ssm_moe     Mamba-2 SSD mixer + MoE                 granite-4.0-h
   rglru       RG-LRU recurrence + gated MLP           recurrentgemma
   enc         bidirectional GQA + MLP                 seamless encoder
   xdec        causal self-attn + cross-attn + MLP     seamless decoder
@@ -17,6 +18,10 @@ A ``local`` block's cache is a ring of ``cfg.window`` slots: prefill
 re-indexes its last ``window`` positions into the slots decode writes.  An
 ``xdec`` block's cache is the pair ``(self-attention K/V, memory K/V)``: the
 encoder memory's K/V, which prefill computes and decode only reads.
+
+Each block output is scaled by ``cfg.residual_scale`` before its residual
+add where that is not 1 (Granite-4.0-H's 0.22); attention takes no rotary
+embedding under ``cfg.nope``.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ __all__ = [
     "memory_kv",
 ]
 
-_PORTED = ("attn", "local", "attn_dense", "attn_moe", "ssm", "rglru", "enc", "xdec")
+_PORTED = ("attn", "local", "attn_dense", "attn_moe", "ssm", "ssm_moe", "rglru", "enc", "xdec")
+_MOE = ("attn_moe", "ssm_moe")
+_SSM = ("ssm", "ssm_moe")
 
 
 # ------------------------------------------------------------------ MLP bits
@@ -65,7 +72,9 @@ def _mlp_apply(p: dict, x, cfg: ModelConfig):
 
 
 def make_rope_fn(cfg: ModelConfig, positions):
-    """positions: [B,S] (standard) or [3,B,S] (M-RoPE)."""
+    """positions: [B,S] (standard) or [3,B,S] (M-RoPE); none under NoPE."""
+    if cfg.nope:
+        return lambda x: x
     if cfg.mrope:
         return lambda x: mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return lambda x: rope(x, positions, cfg.rope_theta)
@@ -90,10 +99,11 @@ def block_params(generator, cfg: ModelConfig, kind: str, *, layers: int = 0,
     _check(kind)
     kw = dict(layers=layers, dtype=dtype, device=device)
     p = {"norm1": param(generator, (cfg.d_model,), init="zeros", **kw)}
-    if kind == "ssm":  # the mixer alone: no MLP, no norm2
+    if kind in _SSM:
         p["ssm"] = ssm_mod.ssm_params(generator, cfg, **kw)
-        return p
-    if kind == "rglru":
+        if kind == "ssm":  # the mixer alone: no MLP, no norm2
+            return p
+    elif kind == "rglru":
         p["rec"] = rglru_mod.rglru_params(generator, cfg, **kw)
     elif kind in ("enc", "xdec"):  # GQA whatever cfg.mla says, as the reference's
         p["attn"] = attn_mod.gqa_params(generator, cfg, **kw)
@@ -103,7 +113,7 @@ def block_params(generator, cfg: ModelConfig, kind: str, *, layers: int = 0,
         p["normx"] = param(generator, (cfg.d_model,), init="zeros", **kw)
         p["xattn"] = attn_mod.gqa_params(generator, cfg, **kw)
     p["norm2"] = param(generator, (cfg.d_model,), init="zeros", **kw)
-    if kind == "attn_moe":
+    if kind in _MOE:
         p["moe"] = moe_mod.moe_params(generator, cfg, **kw)
     else:
         dense_ff = kind == "attn_dense" and cfg.moe and cfg.moe.d_ff_dense
@@ -157,11 +167,12 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
     _check(kind)
     x = constrain(x, aux.get("ctx"), ("dp", None, None))  # each block's input, as a layer's
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if kind == "ssm":
+    if kind in _SSM:
         out = ssm_mod.ssm_apply(p["ssm"], xn, cfg, return_cache=want_cache)
         y, cache = out if want_cache else (out, None)
-        return x + y, 0.0, cache
-    if kind == "rglru":
+        if kind == "ssm":
+            return x + y, 0.0, cache
+    elif kind == "rglru":
         out = rglru_mod.rglru_apply(p["rec"], xn, cfg, return_cache=want_cache)
         y, cache = out if want_cache else (out, None)
     else:
@@ -174,7 +185,7 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
         )
         if want_cache and kind == "local":
             cache = _ring_from_full(cache, cfg.window)
-    x = _residual(x, y, aux)
+    x = _residual(x, _scaled(y, cfg), aux)
     if kind == "xdec":
         mkv = aux.get("memory_kv")
         if mkv is None:
@@ -184,11 +195,17 @@ def block_apply(p, x, *, kind, cfg: ModelConfig, aux, want_cache=False):
         if want_cache:
             cache = (cache, mkv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
-    if kind == "attn_moe":
+    if kind in _MOE:
         top_i, top_w, probs = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
         aux_l = moe_mod.aux_load_balance_loss(probs, top_i, cfg.moe)
-        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg, aux.get("ctx")), aux_l, cache
-    return x + _mlp_apply(p["mlp"], xn, cfg), 0.0, cache
+        y = moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg, aux.get("ctx"))
+        return x + _scaled(y, cfg), aux_l, cache
+    return x + _scaled(_mlp_apply(p["mlp"], xn, cfg), cfg), 0.0, cache
+
+
+def _scaled(y, cfg: ModelConfig):
+    """A block output times ``cfg.residual_scale`` (left alone at 1)."""
+    return y if cfg.residual_scale == 1.0 else y * cfg.residual_scale
 
 
 def _residual(x, y, aux):
@@ -226,10 +243,11 @@ def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
             raise ValueError("an xdec block decodes after a prefill: its memory K/V is None")
     x = constrain(x, aux.get("ctx"), ("dp", None, None))  # each block's input, as a layer's
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if kind == "ssm":
+    if kind in _SSM:
         y, cache = ssm_mod.ssm_decode(p["ssm"], xn, cfg, cache)
-        return x + y, cache
-    if kind == "rglru":
+        if kind == "ssm":
+            return x + y, cache
+    elif kind == "rglru":
         y, cache = rglru_mod.rglru_decode(p["rec"], xn, cfg, cache)
     elif cfg.mla is not None:
         y, cache = attn_mod.mla_decode(p["attn"], xn, cfg, cache, pos)
@@ -240,16 +258,17 @@ def block_decode(p, x, *, kind, cfg: ModelConfig, aux, cache, pos):
         rope_fn = make_rope_fn(cfg, aux["positions"])
         y, cache = attn_mod.gqa_decode(p["attn"], xn, cfg, rope_fn, cache, pos,
                                        window=cfg.window if kind == "local" else 0)
-    x = _residual(x, y, aux)
+    x = _residual(x, _scaled(y, cfg), aux)
     if kind == "xdec":
         x = _residual(x, _cross_attn(p["xattn"], rms_norm(x, p["normx"], cfg.norm_eps), cfg, mkv),
                       aux)
         cache = (cache, mkv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
-    if kind == "attn_moe":
+    if kind in _MOE:
         top_i, top_w, _ = moe_mod.route(p["moe"]["router"], xn, cfg.moe)
-        return x + moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg, aux.get("ctx")), cache
-    return x + _mlp_apply(p["mlp"], xn, cfg), cache
+        y = moe_mod.moe_apply(p["moe"], xn, top_i, top_w, cfg, aux.get("ctx"))
+        return x + _scaled(y, cfg), cache
+    return x + _scaled(_mlp_apply(p["mlp"], xn, cfg), cfg), cache
 
 
 # --------------------------------------------------------------------- cache
@@ -265,7 +284,7 @@ def block_init_cache(cfg: ModelConfig, kind: str, bsz: int, cache_len: int, dtyp
     _check(kind)
     if kind in ("enc", "xdec"):
         raise ValueError(f"no cache for kind {kind!r}")
-    if kind == "ssm":
+    if kind in _SSM:
         return ssm_mod.ssm_init_cache(cfg, bsz, dtype, layers=layers, device=device)
     if kind == "rglru":
         return rglru_mod.rglru_init_cache(cfg, bsz, dtype, layers=layers, device=device)

@@ -32,6 +32,13 @@ class MoEConfig:
     # keeps the first 3 layers dense).
     first_k_dense: int = 0
     d_ff_dense: int = 0  # hidden of those dense layers
+    # expert parallelism's share on this device: experts [0, experts_held)
+    # of num_experts are held and computed; the router keeps all
+    # num_experts outputs.  0 -> every expert.
+    experts_held: int = 0
+    # dropless dispatch: every pair routed to a held expert is computed
+    # (capacity_factor is then unused)
+    dropless: bool = False
 
 
 @dataclass(frozen=True)
@@ -116,6 +123,15 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: str = "full"  # "none" | "full" | "dots"
     logits_softcap: float = 0.0
+    # per-layer block kinds, as listed (no cycling), grouped into runs of
+    # one kind; empty -> ``pattern`` decides
+    layer_types: tuple[str, ...] = ()
+    # Granite-4.0-H's multipliers and its attention without positions (NoPE)
+    nope: bool = False  # attention takes no rotary embedding
+    attn_scale: float = 0.0  # softmax scale; 0 -> 1/sqrt(head_dim)
+    embed_scale: float = 1.0  # the embedding lookup's multiplier
+    residual_scale: float = 1.0  # each block output's multiplier before its residual add
+    logits_scale: float = 1.0  # the logits' multiplier
 
     # ------------------------------------------------------------------ utils
     @property
@@ -129,6 +145,10 @@ class ModelConfig:
 
     def block_types(self) -> tuple[str, ...]:
         """Resolved per-layer block type list of length n_layers."""
+        if self.layer_types:
+            if len(self.layer_types) != self.n_layers:
+                raise ValueError(f"{len(self.layer_types)} layer_types for {self.n_layers} layers")
+            return self.layer_types
         if self.pattern:
             reps = -(-self.n_layers // len(self.pattern))
             return (self.pattern * reps)[: self.n_layers]

@@ -98,10 +98,6 @@ def _decoder_groups(cfg: ModelConfig):
     return cfg.scan_groups()
 
 
-def _embed_scale(cfg: ModelConfig) -> float:
-    return float(cfg.d_model) ** 0.5 if cfg.family == "hybrid" else 1.0
-
-
 def _unstack(tree, count: int) -> list:
     """Per-layer views ``[tree[0], ..., tree[count-1]]`` of a stacked tree
     (a ``None`` leaf, an ``xdec`` cache's memory slot before prefill, stays
@@ -305,20 +301,22 @@ def _gather_top(params, ctx):
 
 def _embed_tokens(params, tokens, cfg: ModelConfig):
     x = vocab_lookup(params["embed"], tokens)
-    scale = _embed_scale(cfg)
-    if scale != 1.0:
-        x = x * scale
+    if cfg.embed_scale != 1.0:
+        x = x * cfg.embed_scale
     return x.to(_torch_dtype(cfg.dtype))
 
 
 def _logits(params, x, cfg: ModelConfig, ctx=None):
-    """f32 logits; the head product runs in the activation dtype and padded
-    vocab columns are masked."""
+    """f32 logits, times ``cfg.logits_scale``; the head product runs in the
+    activation dtype and padded vocab columns are masked."""
     x = constrain(x, ctx, ("dp", None, None))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = constrain(x @ head.to(x.dtype), ctx, ("dp", None, "tp"))
-    logits = softcap(logits.float(), cfg.logits_softcap)
+    logits = logits.float()
+    if cfg.logits_scale != 1.0:
+        logits = logits * cfg.logits_scale
+    logits = softcap(logits, cfg.logits_softcap)
     if cfg.vocab_padded != cfg.vocab:  # out of place: autograd reads the product
         keep = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
         logits = torch.where(keep, logits, -2.0e38)

@@ -20,6 +20,24 @@ own experts' pairs (the others sort last as strangers and are dropped
 here), and explicit ``torch.distributed`` collectives combine the partial
 outputs.  ``moe_dense_ref`` is the all-experts-dense oracle.  The reference
 reaches no Pallas kernel here; these are plain PyTorch ops.
+
+A device may hold a share of the experts (``MoEConfig.experts_held``, ids
+0 to ``experts_held`` - 1): the router keeps every expert's output, the layer
+computes only its own experts' part for the pairs routed to them, and that
+partial result goes on (expert parallelism without its exchange).  With
+``MoEConfig.dropless`` (:func:`_dispatch_dropless`) every such pair is
+computed: the held experts' pairs, sorted by expert, fill a buffer as long
+as the busiest expert's rows (one host read a call), run as one batched
+product, and each token sums its held experts' outputs, weighted, in one
+reduction.
+
+Spans: ``moe.route``, ``moe.dispatch`` (sort and gather), ``moe.experts``
+(the products, the shared expert's too) and ``moe.combine``.  Counters
+(``repro_torch.spans.Counter``): of dropless dispatch, from the numbers
+its host read already holds, ``calls``, ``rows_held`` (pairs computed by
+held experts) and ``rows_max`` (the busiest held expert's rows, summed over
+calls); of the capacity path, summed on the device, ``dropped`` (pairs
+routed to a held expert and not computed; dropless dispatch drops none).
 """
 
 from __future__ import annotations
@@ -31,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.parallel.sharding import over_batch, shard_map_compat, spec_of
+from repro_torch.spans import Counter, span
 
 from .config import ModelConfig, MoEConfig
 from .layers import param
@@ -43,6 +62,13 @@ __all__ = [
     "aux_load_balance_loss",
 ]
 
+calls, rows_held, rows_max, dropped = Counter(), Counter(), Counter(), Counter()
+
+
+def _held(m: MoEConfig) -> int:
+    """How many experts this device holds."""
+    return m.experts_held or m.num_experts
+
 
 def moe_params(generator, cfg: ModelConfig, *, layers: int = 0, dtype, device) -> dict:
     m: MoEConfig = cfg.moe
@@ -52,9 +78,9 @@ def moe_params(generator, cfg: ModelConfig, *, layers: int = 0, dtype, device) -
     p = {
         "router": param(generator, (d, m.num_experts), layers=layers,
                         dtype=torch.float32, device=device),
-        "w1": param(generator, (m.num_experts, d, f), **kw),
-        "w3": param(generator, (m.num_experts, d, f), **kw),
-        "w2": param(generator, (m.num_experts, f, d), **kw),
+        "w1": param(generator, (_held(m), d, f), **kw),
+        "w3": param(generator, (_held(m), d, f), **kw),
+        "w2": param(generator, (_held(m), f, d), **kw),
     }
     if m.num_shared:
         fs = (m.d_shared or f) * m.num_shared
@@ -73,7 +99,8 @@ def _top_k(probs: torch.Tensor, k: int):
 def route(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig):
     """Top-k routing.  Returns (top_idx [B,S,k], top_w [B,S,k], probs).
     On DTensors each rank routes its own batch rows (``over_batch``)."""
-    return over_batch(lambda xl, wl: _route(wl, xl, m), (x,), (router_w,), n_out=3)
+    with span("moe.route"):
+        return over_batch(lambda xl, wl: _route(wl, xl, m), (x,), (router_w,), n_out=3)
 
 
 def _route(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig):
@@ -125,12 +152,12 @@ def _expert_compute(xbuf, w1, w3, w2, act):
 
 
 def _dispatch_local(x2d, top_i, top_w, w1, w3, w2, *, m: MoEConfig, act,
-                    rank: int = 0) -> torch.Tensor:
+                    first: int = 0) -> torch.Tensor:
     """Select -> compute -> combine for this rank's experts.  [T, d] partial.
 
-    Rank ``rank`` owns experts ``[rank * E_loc, (rank + 1) * E_loc)``; the
-    other experts' pairs sort last as strangers and contribute zero.  On
-    one device every expert is local (the reference's rank 0 of one).
+    The rank holds experts ``[first, first + E_loc)``; the other experts'
+    pairs sort last as strangers and contribute zero.  On one device
+    holding every expert, all are local (the reference's rank 0 of one).
     """
     t, d_model = x2d.shape
     e = w1.shape[0]  # E_loc
@@ -138,36 +165,81 @@ def _dispatch_local(x2d, top_i, top_w, w1, w3, w2, *, m: MoEConfig, act,
     cap = int(math.ceil(t * m.top_k / m.num_experts * m.capacity_factor))
     dev = x2d.device
 
-    local_e = top_i.reshape(-1) - rank * e  # [T*k]
-    mine = (local_e >= 0) & (local_e < e)
-    eid = torch.where(mine, local_e, e)  # strangers sort last
-    n = eid.shape[0]
-    order = torch.sort(eid, stable=True).indices
-    key_sorted = eid[order]
-    starts = torch.searchsorted(key_sorted, torch.arange(e + 1, device=dev, dtype=eid.dtype))
-    slot_sorted = torch.arange(n, device=dev) - starts[key_sorted]
-    ok = (key_sorted < e) & (slot_sorted < cap)
-    tok_s = torch.div(order, k, rounding_mode="floor")  # the token of each sorted pair
-    wgt_s = top_w.reshape(-1)[order]
-    # gather tokens into the capacity buffer; dropped pairs land in one
-    # spill row past the buffer, which is cut off
-    dest = torch.where(ok, key_sorted * cap + slot_sorted, e * cap)
-    buf = x2d.new_zeros((e * cap + 1, d_model))
-    buf[dest] = x2d[tok_s]
-    ybuf = _expert_compute(buf[: e * cap].view(e, cap, d_model), w1, w3, w2, act)
-    vals = ybuf.reshape(e * cap, d_model)[
-        key_sorted.clamp(max=e - 1) * cap + slot_sorted.clamp(0, cap - 1)]
-    vals = vals * wgt_s[:, None]
-    # combine: token i's pairs sit at sorted positions pos[i] (ascending =
-    # by expert); add them one by one, dropped ones as exact zeros
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n, device=dev)
-    pos = inv.view(t, k).sort(dim=1).values
-    contrib = torch.where(ok[pos][..., None], vals[pos], 0.0)  # [T, k, d]
-    out = torch.zeros((t, d_model), dtype=x2d.dtype, device=dev)
-    for j in range(k):
-        out = out + contrib[:, j]
+    with span("moe.dispatch"):
+        local_e = top_i.reshape(-1) - first  # [T*k]
+        mine = (local_e >= 0) & (local_e < e)
+        eid = torch.where(mine, local_e, e)  # strangers sort last
+        n = eid.shape[0]
+        order = torch.sort(eid, stable=True).indices
+        key_sorted = eid[order]
+        starts = torch.searchsorted(key_sorted, torch.arange(e + 1, device=dev, dtype=eid.dtype))
+        slot_sorted = torch.arange(n, device=dev) - starts[key_sorted]
+        held_s = key_sorted < e
+        ok = held_s & (slot_sorted < cap)
+        tok_s = torch.div(order, k, rounding_mode="floor")  # the token of each sorted pair
+        wgt_s = top_w.reshape(-1)[order]
+        # gather tokens into the capacity buffer; dropped pairs land in one
+        # spill row past the buffer, which is cut off
+        dest = torch.where(ok, key_sorted * cap + slot_sorted, e * cap)
+        buf = x2d.new_zeros((e * cap + 1, d_model))
+        buf[dest] = x2d[tok_s]
+        dropped.add((held_s ^ ok).sum())  # held and past the buffer; on the device
+    with span("moe.experts"):
+        ybuf = _expert_compute(buf[: e * cap].view(e, cap, d_model), w1, w3, w2, act)
+    with span("moe.combine"):
+        vals = ybuf.reshape(e * cap, d_model)[
+            key_sorted.clamp(max=e - 1) * cap + slot_sorted.clamp(0, cap - 1)]
+        vals = vals * wgt_s[:, None]
+        # combine: token i's pairs sit at sorted positions pos[i] (ascending
+        # = by expert); add them one by one, dropped ones as exact zeros
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(n, device=dev)
+        pos = inv.view(t, k).sort(dim=1).values
+        contrib = torch.where(ok[pos][..., None], vals[pos], 0.0)  # [T, k, d]
+        out = torch.zeros((t, d_model), dtype=x2d.dtype, device=dev)
+        for j in range(k):
+            out = out + contrib[:, j]
     return out
+
+
+def _dispatch_dropless(x2d, top_i, top_w, w1, w3, w2, *, act, first: int = 0) -> torch.Tensor:
+    """Every pair routed to the held experts ``[first, first + E_h)``,
+    computed.  [T, d] partial.
+
+    The held pairs sort first, by expert (stably: by token within an
+    expert); expert j's rows fill row ``j`` of an ``[E_h, R, d]`` buffer,
+    R the busiest held expert's count, read to the host once; one batched
+    product computes them.  Each token's outputs land in its own row of an
+    ``[T, E_h, d]`` buffer at their expert (no two pairs of a token share
+    an expert), weighted, and one sum over the experts combines them: no
+    atomics, the same bits on every run.
+    """
+    t, d_model = x2d.shape
+    e, k = w1.shape[0], top_i.shape[-1]
+    dev = x2d.device
+    with span("moe.dispatch"):
+        local = top_i.reshape(-1) - first  # [T*k]
+        mine = (local >= 0) & (local < e)
+        eid = torch.where(mine, local, e)  # strangers sort last
+        counts = torch.zeros(e + 1, dtype=torch.long, device=dev).scatter_add_(
+            0, eid, torch.ones_like(eid))[:e]
+        rows, n_held = torch.stack([counts.max(), counts.sum()]).tolist()  # the host read
+        order = torch.sort(eid, stable=True).indices[:n_held]
+        key = eid[order]
+        slot = torch.arange(n_held, device=dev) - (torch.cumsum(counts, 0) - counts)[key]
+        tok = torch.div(order, k, rounding_mode="floor")
+        buf = x2d.new_zeros((e * rows, d_model))
+        buf[key * rows + slot] = x2d[tok]
+        calls.add(1)  # host numbers: every held pair computed, none dropped
+        rows_held.add(n_held)
+        rows_max.add(rows)
+    with span("moe.experts"):
+        ybuf = _expert_compute(buf.view(e, rows, d_model), w1, w3, w2, act)
+    with span("moe.combine"):
+        vals = ybuf.view(e * rows, d_model)[key * rows + slot] * top_w.reshape(-1)[order][:, None]
+        per = x2d.new_zeros((t * e, d_model))
+        per[tok * e + key] = vals
+        return per.view(t, e, d_model).sum(1)
 
 
 def moe_apply(
@@ -203,6 +275,8 @@ def moe_apply(
         args += [params["ws1"], params["ws3"], params["ws2"]]
     if mesh is None:
         return _moe_body(*args, m=m, act=act, ctx=None)
+    if m.experts_held or m.dropless:
+        raise ValueError("a held share of the experts, or dropless dispatch, runs without a mesh")
     full_ep = len(ctx.ep_axes) > 1
     dp = ctx.dp_axes if len(ctx.dp_axes) > 1 else ctx.dp_axes[0]
     ep = tuple(ctx.ep_axes) if full_ep else ctx.tp_axis
@@ -230,10 +304,15 @@ def _moe_body(x, top_i, top_w, w1, w3, w2, *shared, m: MoEConfig, act, ctx):
     if full_ep:
         t_loc = x2d.shape[0]
         x2d, ti2, tw2 = (coll.all_gather(a, ctx.mesh, ctx.dp_axes) for a in (x2d, ti2, tw2))
-    out = _dispatch_local(x2d, ti2, tw2, w1, w3, w2, m=m, act=act, rank=rank)
+    first = rank * w1.shape[0]
+    if m.dropless:
+        out = _dispatch_dropless(x2d, ti2, tw2, w1, w3, w2, act=act, first=first)
+    else:
+        out = _dispatch_local(x2d, ti2, tw2, w1, w3, w2, m=m, act=act, first=first)
     if shared:
         ws1, ws3, ws2 = shared
-        sh = (act(x2d @ ws1) * (x2d @ ws3)) @ ws2
+        with span("moe.experts"):
+            sh = (act(x2d @ ws1) * (x2d @ ws3)) @ ws2
         if full_ep:
             # shared weights are sharded over 'model' only, so every 'data'
             # rank computes the same partial: pre-scale so the global
@@ -249,13 +328,14 @@ def _moe_body(x, top_i, top_w, w1, w3, w2, *shared, m: MoEConfig, act, ctx):
 
 
 def moe_dense_ref(params, x, cfg: ModelConfig, act=F.silu):
-    """Oracle: every expert computes every token; combine with top-k weights."""
+    """Oracle: every held expert computes every token; combine with top-k
+    weights."""
     m = cfg.moe
     top_i, top_w, _ = route(params["router"], x, m)
     h = torch.einsum("bsd,edf->bsef", x, params["w1"])
     u = torch.einsum("bsd,edf->bsef", x, params["w3"])
     y_all = torch.einsum("bsef,efd->bsed", act(h) * u, params["w2"])
-    mask = F.one_hot(top_i, m.num_experts).to(x.dtype)  # [B,S,k,E]
+    mask = F.one_hot(top_i, m.num_experts)[..., : _held(m)].to(x.dtype)  # [B,S,k,E held]
     w_full = (mask * top_w[..., None]).sum(-2)  # [B,S,E]
     out = torch.einsum("bsed,bse->bsd", y_all, w_full)
     if m.num_shared:

@@ -17,6 +17,10 @@ the activation dtype.  ``a_log`` and ``dt_bias`` are stored in f32.  Heads
 share their group's B and C by a view over ``[groups, heads per group]``,
 the reference's ``jnp.repeat`` without the copy.  The reference reaches no
 Pallas kernel here; these are plain PyTorch ops.
+
+Spans: ``ssm.conv`` (the causal conv and its SiLU), ``ssm.scan`` (the
+chunked SSD) and ``ssm.gate_norm``; the counter ``chunks``
+(``repro_torch.spans.Counter``) counts the chunks scanned, a row's each.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from repro_torch.parallel.sharding import (
     partial_sums,
     shard_map_compat,
 )
+from repro_torch.spans import Counter, span
 
 from .config import ModelConfig, SSMConfig
 from .layers import param
@@ -47,6 +52,8 @@ __all__ = [
     "ssd_naive",
     "ssm_init_cache",
 ]
+
+chunks = Counter()
 
 
 def _dims(cfg: ModelConfig):
@@ -235,7 +242,8 @@ def _mixer(xin, in_proj, conv_w, conv_b, dt_bias, a_log, d_skip, norm, out_proj,
     z, xbc_pre, dt = zxbcdt[..., :dl], zxbcdt[..., dl : 2 * dl + 2 * gnl], \
         zxbcdt[..., 2 * dl + 2 * gnl :]
     widths = (d_in, g * n, g * n)
-    xbc = F.silu(_conv1d(xbc_pre, _take(conv_w, widths, tp, r), _take(conv_b, widths, tp, r)))
+    with span("ssm.conv"):
+        xbc = F.silu(_conv1d(xbc_pre, _take(conv_w, widths, tp, r), _take(conv_b, widths, tp, r)))
     x, bc = xbc[..., :dl], xbc[..., dl:]
     if gather:
         bc = _gather_bc(bc, mesh)
@@ -244,10 +252,13 @@ def _mixer(xin, in_proj, conv_w, conv_b, dt_bias, a_log, d_skip, norm, out_proj,
     a = -torch.exp(a_log)  # [heads]
 
     gl = bmat.shape[-1] // n
-    y, hstate = _ssd_region(x.reshape(bsz, slen, -1, pdim), bmat.reshape(bsz, slen, gl, n),
-                            cmat.reshape(bsz, slen, gl, n), dt, a, d_skip, q=s.chunk)
+    with span("ssm.scan"):
+        y, hstate = _ssd_region(x.reshape(bsz, slen, -1, pdim), bmat.reshape(bsz, slen, gl, n),
+                                cmat.reshape(bsz, slen, gl, n), dt, a, d_skip, q=s.chunk)
+    chunks.add(bsz * (slen // s.chunk))
     y = y.reshape(bsz, slen, dl).to(xin.dtype)
-    y = _gated_norm(y, z, norm, cfg.norm_eps, mesh)
+    with span("ssm.gate_norm"):
+        y = _gated_norm(y, z, norm, cfg.norm_eps, mesh)
     out = y @ out_proj
     if not return_cache:
         return [out]

@@ -12,6 +12,7 @@ the reference's bf16 parameters as ``tests/test_decode_consistency.py`` does.
 """
 
 import dataclasses
+import difflib
 from collections import deque
 from pathlib import Path
 
@@ -92,23 +93,64 @@ def _close_trees(got, want, tol):
 
 
 # ----------------------------------------------------------------- registry
+# Fields the port adds to the reference's configuration, with their defaults
+# (Granite-4.0-H's layer list, multipliers and NoPE; an expert layer's held
+# share and dropless dispatch).  A default leaves the reference's behaviour.
+PORT_FIELDS = {"layer_types": (), "nope": False, "attn_scale": 0.0, "embed_scale": 1.0,
+               "residual_scale": 1.0, "logits_scale": 1.0}
+PORT_MOE_FIELDS = {"experts_held": 0, "dropless": False}
+
+
 def test_config_module_is_a_copy():
+    """The port's ``config.py`` is the reference's with exactly the port's
+    committed diff applied (``tests/torch_models_config.diff``: the port's
+    own fields, each defaulting to the reference's behaviour, and
+    ``block_types`` reading a listed ``layer_types``)."""
     ours = ROOT / "src" / "repro_torch" / "models" / "config.py"
-    assert ours.read_bytes() == (ROOT / "src" / "repro" / "models" / "config.py").read_bytes()
+    theirs = ROOT / "src" / "repro" / "models" / "config.py"
+    diff = difflib.unified_diff(
+        theirs.read_bytes().decode().splitlines(True), ours.read_bytes().decode().splitlines(True),
+        "src/repro/models/config.py", "src/repro_torch/models/config.py")
+    assert "".join(diff) == (ROOT / "tests" / "torch_models_config.diff").read_bytes().decode()
+    from repro.models import config as jcfg
+    from repro_torch.models import config as tcfg
+
+    for ours_cls, theirs_cls, added in ((tcfg.ModelConfig, jcfg.ModelConfig, PORT_FIELDS),
+                                        (tcfg.MoEConfig, jcfg.MoEConfig, PORT_MOE_FIELDS)):
+        shared = {f.name for f in dataclasses.fields(theirs_cls)}
+        assert {f.name: f.default for f in dataclasses.fields(ours_cls)
+                if f.name not in shared} == added
+
+
+def _reference_fields(cfg) -> dict:
+    """``asdict(cfg)`` without the port's own fields."""
+    out = {k: v for k, v in dataclasses.asdict(cfg).items() if k not in PORT_FIELDS}
+    if out["moe"] is not None:
+        out["moe"] = {k: v for k, v in out["moe"].items() if k not in PORT_MOE_FIELDS}
+    return out
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_config_modules_match(arch):
+    """Each config module is the reference's but for its import line and the
+    lines that set the port's own fields; those fields keep the reference's
+    behaviour (its hybrid family's embedding scaled by sqrt(d_model), which
+    recurrentgemma's module states), the others equal the reference's."""
     mod = arch.replace("-", "_").replace(".", "_") + ".py"
     ours = (ROOT / "src" / "repro_torch" / "configs" / mod).read_text().splitlines()
     theirs = (ROOT / "src" / "repro" / "configs" / mod).read_text().splitlines()
+    ours = [a for a in ours if a.strip().split("=")[0] not in PORT_FIELDS]
     diff = [(a, b) for a, b in zip(ours, theirs) if a != b]
     assert len(ours) == len(theirs)
     assert [a for a, _ in diff] == [b.replace("from repro.", "from repro_torch.") for _, b in diff]
     assert len(diff) == 1 and diff[0][0].startswith("from repro_torch.models.config import")
     for get in ("get_config", "get_smoke"):
-        assert dataclasses.asdict(getattr(tconfigs, get)(arch)) == \
-            dataclasses.asdict(getattr(jconfigs, get)(arch))
+        t, j = getattr(tconfigs, get)(arch), getattr(jconfigs, get)(arch)
+        assert _reference_fields(t) == dataclasses.asdict(j)
+        want = dict(PORT_FIELDS, embed_scale=float(j.d_model) ** 0.5 if j.family == "hybrid" else 1.0)
+        assert {k: getattr(t, k) for k in PORT_FIELDS} == want
+        if t.moe is not None:
+            assert {k: getattr(t.moe, k) for k in PORT_MOE_FIELDS} == PORT_MOE_FIELDS
 
 
 def test_registry_matches():
